@@ -1,0 +1,188 @@
+"""Weights across the two packages (counterpart of ``stain2stain_tpu/compat/torch_unet.py``).
+
+- :func:`unet_state_dict_from_flax` takes the JAX package's UNet parameter
+  tree as nested numpy dicts (what ``jax.device_get(variables["params"])``
+  gives) and returns the port's ``state_dict``. It is the exact inverse of
+  ``stain2stain_tpu.compat.convert_unet_state_dict``: flax conv kernels
+  ``(kh, kw, I, O)`` → ``(O, I, kh, kw)``, Dense ``(I, O)`` → Linear
+  ``(O, I)`` (or Conv1d ``(O, I, 1)`` for the attention qkv/proj), GN
+  ``scale/bias`` → ``weight/bias``, and the attention qkv rows put back into
+  the legacy ``[h0·(q,k,v), h1·(q,k,v), …]`` order.
+- :func:`load_reference_checkpoint` reads a ``.pt`` state dict or a reference
+  Lightning ``.ckpt`` (``torch.load(weights_only=True)``) and strips the
+  ``net.`` prefix, giving a state dict the port's UNet loads directly.
+
+Orbax checkpoints of the JAX package cannot be read without JAX; they go
+through ``unet_state_dict_from_flax`` in a process that has JAX.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from ..models.unet import attention_ds
+
+__all__ = ["unet_state_dict_from_flax", "load_reference_checkpoint"]
+
+
+def _t(a: Any) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _conv(p: Mapping) -> dict:
+    return {"weight": _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1)), "bias": _t(p["bias"])}
+
+
+def _conv1d(kernel: np.ndarray, bias: np.ndarray) -> dict:
+    return {"weight": _t(np.asarray(kernel).T[:, :, None]), "bias": _t(bias)}
+
+
+def _linear(p: Mapping) -> dict:
+    return {"weight": _t(np.asarray(p["kernel"]).T), "bias": _t(p["bias"])}
+
+
+def _norm(p: Mapping) -> dict:
+    return {"weight": _t(p["scale"]), "bias": _t(p["bias"])}
+
+
+def _put(sd: dict, prefix: str, tensors: dict) -> None:
+    for name, value in tensors.items():
+        sd[f"{prefix}.{name}"] = value
+
+
+def _resblock(sd: dict, prefix: str, p: Mapping) -> None:
+    _put(sd, f"{prefix}.in_layers.0", _norm(p["norm_in"]))
+    _put(sd, f"{prefix}.in_layers.2", _conv(p["conv_in"]))
+    _put(sd, f"{prefix}.emb_layers.1", _linear(p["emb_proj"]))
+    _put(sd, f"{prefix}.out_layers.0", _norm(p["norm_out"]))
+    _put(sd, f"{prefix}.out_layers.3", _conv(p["conv_out"]))
+    if "skip_proj" in p:
+        _put(sd, f"{prefix}.skip_connection", _conv(p["skip_proj"]))
+
+
+def _qkv_perm(channels: int, head_dim: int) -> np.ndarray:
+    """Legacy row of each ``[q‖k‖v]`` column (``torch_unet.py::_qkv_perm``)."""
+    cols = np.arange(3 * channels)
+    comp, rem = cols // channels, cols % channels
+    head, idx = rem // head_dim, rem % head_dim
+    return head * 3 * head_dim + comp * head_dim + idx
+
+
+def _attention(sd: dict, prefix: str, p: Mapping, channels: int, num_heads: int) -> None:
+    kernel = np.asarray(p["qkv"]["kernel"])  # (C, 3C), columns [q‖k‖v]
+    bias = np.asarray(p["qkv"]["bias"])
+    perm = _qkv_perm(channels, channels // num_heads)
+    w_rows = np.empty_like(kernel.T)
+    b_rows = np.empty_like(bias)
+    w_rows[perm] = kernel.T  # the inverse of torch_unet's `qkv_w[perm]`
+    b_rows[perm] = bias
+    _put(sd, f"{prefix}.norm", _norm(p["norm"]))
+    _put(sd, f"{prefix}.qkv", _conv1d(w_rows.T, b_rows))
+    proj = p["proj"]
+    _put(sd, f"{prefix}.proj_out", _conv1d(proj["kernel"], proj["bias"]))
+
+
+def unet_state_dict_from_flax(
+    params: Mapping[str, Any],
+    *,
+    image_size: int,
+    num_channels: int,
+    num_res_blocks: int,
+    channel_mult: Sequence[int] = (1, 2, 2, 4),
+    attention_resolutions: Any = "16",
+    num_heads: int = 4,
+    num_head_channels: int = -1,
+    class_cond: bool = False,
+) -> dict[str, torch.Tensor]:
+    """The port's UNet ``state_dict`` from the JAX package's UNet params."""
+    mc = num_channels
+    attn_ds = attention_ds(attention_resolutions, image_size)
+
+    def heads_for(ch: int) -> int:
+        if num_head_channels != -1:
+            return max(ch // num_head_channels, 1)
+        return num_heads
+
+    sd: dict[str, torch.Tensor] = {}
+    _put(sd, "time_embed.0", _linear(params["time_dense_0"]))
+    _put(sd, "time_embed.2", _linear(params["time_dense_1"]))
+    if class_cond:
+        sd["label_emb.weight"] = _t(params["label_emb"]["embedding"])
+    _put(sd, "input_blocks.0.0", _conv(params["conv_stem"]))
+
+    n_levels = len(channel_mult)
+    ds, idx = 1, 1
+    level_cfg = []
+    for level, mult in enumerate(channel_mult):
+        ch = mult * mc
+        heads = heads_for(ch) if ds in attn_ds else 0
+        level_cfg.append((level, ch, heads))
+        down = params[f"down_{level}"]
+        for i in range(num_res_blocks):
+            block = down[f"block_{i}"]
+            _resblock(sd, f"input_blocks.{idx}.0", block["res"])
+            if heads:
+                _attention(sd, f"input_blocks.{idx}.1", block["attn"], ch, heads)
+            idx += 1
+        if level != n_levels - 1:
+            if "down" in down:
+                d = down["down"]
+                if "Conv_0" in d:
+                    _put(sd, f"input_blocks.{idx}.0.op", _conv(d["Conv_0"]))
+                else:  # resblock_updown
+                    _resblock(sd, f"input_blocks.{idx}.0", d)
+            idx += 1
+            ds *= 2
+
+    mid_ch = channel_mult[-1] * mc
+    mid = params["mid"]
+    _resblock(sd, "middle_block.0", mid["res_0"])
+    _attention(sd, "middle_block.1", mid["attn"], mid_ch, heads_for(mid_ch))
+    _resblock(sd, "middle_block.2", mid["res_1"])
+
+    idx = 0
+    for level, ch, heads in reversed(level_cfg):
+        up = params[f"up_{level}"]
+        for i in range(num_res_blocks + 1):
+            block = up[f"block_{i}"]
+            _resblock(sd, f"output_blocks.{idx}.0", block["res"])
+            sub = 1
+            if heads:
+                _attention(sd, f"output_blocks.{idx}.{sub}", block["attn"], ch, heads)
+                sub += 1
+            if i == num_res_blocks and level != 0:
+                # the flax net runs this upsample at the start of the next level up
+                target = params[f"up_{level - 1}"].get("up")
+                if target is not None:
+                    if "Conv_0" in target:
+                        _put(sd, f"output_blocks.{idx}.{sub}.conv", _conv(target["Conv_0"]))
+                    else:  # resblock_updown
+                        _resblock(sd, f"output_blocks.{idx}.{sub}", target)
+            idx += 1
+
+    norm = params["norm_final"]
+    _put(sd, "out.0", _norm(norm))
+    _put(sd, "out.2", _conv(params["conv_out"]))
+    return sd
+
+
+def load_reference_checkpoint(path: str | Path, net_prefix: str = "net.") -> dict[str, torch.Tensor]:
+    """Read a ``.pt`` state dict or a Lightning ``.ckpt`` into a UNet state dict.
+
+    Lightning checkpoints keep the velocity net under ``state_dict`` with the
+    ``net.`` attribute prefix; both the nesting and the prefix are removed.
+    Loading uses ``weights_only=True``, so a file holding arbitrary pickled
+    objects is refused rather than executed.
+    """
+    obj = torch.load(str(path), map_location="cpu", weights_only=True)
+    if isinstance(obj, Mapping) and isinstance(obj.get("state_dict"), Mapping):
+        obj = obj["state_dict"]
+    if not isinstance(obj, Mapping):
+        raise ValueError(f"{path}: not a state dict (got {type(obj).__name__})")
+    if any(k.startswith(net_prefix) for k in obj):
+        obj = {k[len(net_prefix):]: v for k, v in obj.items() if k.startswith(net_prefix)}
+    return dict(obj)

@@ -1,0 +1,60 @@
+"""Serving CLI of the port: a long-lived stain-translation HTTP server.
+
+Counterpart of ``src/serve.py``. Composes ``configs/infer.yaml`` with the
+port's config code, builds only the velocity net (``cfg.model.net``) and the
+solver (``cfg.model.solver``) — serving needs no optimizer — loads the
+weights from a ``.pt`` state dict or a reference Lightning ``.ckpt``, and
+serves on the CUDA card (``device=cpu`` to run on the CPU)::
+
+    python -m stain2stain_tpu_torch.serve ckpt_path=<.pt|.ckpt> port=8000 \
+        num_steps=2 tile=256 overlap=32 wsi_batch=16
+
+    curl -X POST --data-binary @slide.png -H 'Content-Type: image/png' \
+        http://localhost:8000/translate -o translated.png
+
+Orbax checkpoints of the JAX package cannot be read without JAX.
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+
+from .compat import load_reference_checkpoint
+from .config import Config, config_main, instantiate
+from .server import TranslationServer, serve_forever
+from .tasks import ConditionalFlowMatchingModule
+from .utils.pylogger import RankedLogger
+
+log = RankedLogger(__name__, rank_zero_only=True)
+
+REPO_ROOT = Path(__file__).resolve().parent.parent
+
+
+def build_server(cfg: Config) -> TranslationServer:
+    """The server described by a composed ``infer.yaml`` config."""
+    device = cfg.get("device")
+    net = instantiate(cfg["model"]["net"], device=device)
+    state = load_reference_checkpoint(cfg["ckpt_path"])
+    net.load_state_dict(state, strict=True)
+    task = ConditionalFlowMatchingModule(net=net, solver=instantiate(cfg["model"]["solver"]))
+    return TranslationServer(
+        task,
+        num_steps=int(cfg.get("num_steps", 2)),
+        tile=int(cfg.get("tile", 256)),
+        overlap=int(cfg.get("overlap", 32)),
+        batch=int(cfg.get("wsi_batch", 16)),
+        target_class=cfg.get("target_class"),
+    )
+
+
+@config_main(config_path="../configs", config_name="infer.yaml")
+def main(cfg: Config):
+    server = build_server(cfg)
+    log.info(f"Generator ready: {server.info}")
+    serve_forever(server, host=str(cfg.get("host", "0.0.0.0")), port=int(cfg.get("port", 8000)))
+
+
+if __name__ == "__main__":
+    os.environ.setdefault("PROJECT_ROOT", str(REPO_ROOT))
+    main()

@@ -1,0 +1,6 @@
+"""Task modules of the port (counterparts of ``stain2stain_tpu/tasks``)."""
+
+from .base import FlowMatchingTask
+from .conditional_flow_matching import ConditionalFlowMatchingModule
+
+__all__ = ["FlowMatchingTask", "ConditionalFlowMatchingModule"]

@@ -1,0 +1,188 @@
+"""PyTorch port's UNet vs the JAX package's, and weights across the packages.
+
+Tiny configs on the CPU: 16 px, 32 channels, mult (1, 2), attention at the
+ds-2 level ("8") and in the mid block, 8-channel heads. Weights are made by
+the flax init, jittered (ADM zero-inits the output convs, which would hide
+faults), and carried to the port by ``unet_state_dict_from_flax``. JAX runs
+in f32 with ``highest`` matmul precision; tolerance 3e-4 as in
+``tests/test_compat.py``.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stain2stain_tpu.compat import convert_lightning_state_dict, convert_unet_state_dict
+from stain2stain_tpu.models import UNetModel as JaxUNet
+from stain2stain_tpu_torch.compat import load_reference_checkpoint, unet_state_dict_from_flax
+from stain2stain_tpu_torch.models import UNetModel
+from tests.helpers.adm_torch import ADMUNet
+
+TOL = 3e-4
+
+TINY = dict(
+    num_channels=32,
+    num_res_blocks=1,
+    channel_mult=(1, 2),
+    attention_resolutions="8",
+    num_head_channels=8,
+)
+
+
+def _jittered_flax_params(net: JaxUNet, x: np.ndarray, y=None, seed: int = 0):
+    t = jnp.zeros((x.shape[0],), jnp.float32)
+    y = None if y is None else jnp.asarray(y)
+    params = jax.jit(net.init)(jax.random.key(seed), t, jnp.asarray(x), y)["params"]
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda p: np.asarray(p) + 0.05 * rng.standard_normal(p.shape).astype(np.float32), params
+    )
+
+
+def _pair(size: int = 16, class_cond: bool = False, **overrides):
+    kw = dict(TINY, **overrides)
+    if class_cond:
+        kw.update(class_cond=True, num_classes=3)
+    jnet = JaxUNet(dim=(3, size, size), fused_attention=False, dtype=jnp.float32, **kw)
+    x = np.random.default_rng(1).standard_normal((2, size, size, 3)).astype(np.float32)
+    y = np.array([0, 2], np.int32) if class_cond else None
+    params = _jittered_flax_params(jnet, x, y)
+    tnet = UNetModel(dim=(3, size, size), device="cpu", **kw).eval()
+    sd = unet_state_dict_from_flax(
+        params,
+        image_size=size,
+        num_channels=kw["num_channels"],
+        num_res_blocks=kw["num_res_blocks"],
+        channel_mult=kw["channel_mult"],
+        attention_resolutions=kw["attention_resolutions"],
+        num_head_channels=kw["num_head_channels"],
+        class_cond=class_cond,
+    )
+    tnet.load_state_dict(sd, strict=True)
+    return jnet, params, tnet, x, y
+
+
+@pytest.mark.parametrize("class_cond", [False, True], ids=["plain", "class_cond"])
+def test_unet_forward_matches_jax(class_cond):
+    jnet, params, tnet, x, y = _pair(class_cond=class_cond)
+    t = np.array([0.25, 0.8], np.float32)
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(
+            jax.jit(jnet.apply)({"params": params}, jnp.asarray(t), jnp.asarray(x), None if y is None else jnp.asarray(y))
+        )
+    with torch.no_grad():
+        got = tnet(torch.from_numpy(t), torch.from_numpy(x), None if y is None else torch.from_numpy(y).long())
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=TOL, rtol=TOL)
+
+
+def test_unet_scalar_time_and_bf16_compute():
+    _, _, tnet, x, _ = _pair()
+    with torch.no_grad():
+        a = tnet(torch.tensor(0.5), torch.from_numpy(x))
+        b = tnet(torch.full((2,), 0.5), torch.from_numpy(x))
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    bf = UNetModel(dim=(3, 16, 16), device="cpu", dtype="bfloat16", **TINY).eval()
+    bf.load_state_dict(tnet.state_dict())
+    with torch.no_grad():
+        c = bf(torch.tensor(0.5), torch.from_numpy(x))
+    assert c.dtype == torch.float32
+    # bf16 compute rounds at every layer: the f32 result is the yardstick
+    assert (c - a).abs().max() < 0.1 * a.abs().max() + 0.05
+
+
+def _admunet(**kw) -> ADMUNet:
+    torch.manual_seed(0)
+    oracle = ADMUNet(image_size=16, **kw).eval()
+    with torch.no_grad():
+        for p in oracle.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+    return oracle
+
+
+@pytest.mark.parametrize("class_cond", [False, True], ids=["plain", "class_cond"])
+def test_weights_round_trip_bit_exact(class_cond):
+    """ADMUNet state dict → JAX converter → port converter gives back every
+    tensor bit for bit, and the port's UNet loads it strictly."""
+    kw = dict(TINY)
+    if class_cond:
+        kw.update(class_cond=True, num_classes=3)
+    oracle = _admunet(**kw)
+    conv_kw = dict(
+        image_size=16,
+        num_channels=kw["num_channels"],
+        num_res_blocks=kw["num_res_blocks"],
+        channel_mult=kw["channel_mult"],
+        attention_resolutions=kw["attention_resolutions"],
+        num_head_channels=kw["num_head_channels"],
+        class_cond=class_cond,
+    )
+    params = convert_unet_state_dict(oracle.state_dict(), **conv_kw)
+    back = unet_state_dict_from_flax(params, **conv_kw)
+    original = oracle.state_dict()
+    assert set(back) == set(original)
+    for key, value in original.items():
+        assert back[key].shape == value.shape, key
+        assert torch.equal(back[key], value), key
+    net = UNetModel(dim=(3, 16, 16), device="cpu", **kw)
+    net.load_state_dict(back, strict=True)
+    assert set(net.state_dict()) == set(original)
+
+
+def test_port_matches_reference_oracle_directly():
+    """A reference (torchcfm-layout) state dict loads into the port unchanged
+    and gives the oracle's forward."""
+    oracle = _admunet(**TINY)
+    net = UNetModel(dim=(3, 16, 16), device="cpu", **TINY).eval()
+    net.load_state_dict(oracle.state_dict(), strict=True)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((2, 3, 16, 16)).astype(np.float32))
+    t = torch.tensor([0.1, 0.9])
+    with torch.no_grad():
+        ref = oracle(t, x)
+        got = net(t, x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+def test_load_reference_checkpoint(tmp_path):
+    oracle = _admunet(**TINY)
+    sd = oracle.state_dict()
+    torch.save(sd, tmp_path / "net.pt")
+    torch.save({"state_dict": {f"net.{k}": v for k, v in sd.items()}, "epoch": 3}, tmp_path / "last.ckpt")
+    for name in ("net.pt", "last.ckpt"):
+        got = load_reference_checkpoint(tmp_path / name)
+        assert set(got) == set(sd)
+        assert all(torch.equal(got[k], sd[k]) for k in sd)
+    # the JAX package's converter reads the same Lightning layout
+    params = convert_lightning_state_dict(
+        torch.load(tmp_path / "last.ckpt", weights_only=True)["state_dict"],
+        image_size=16,
+        num_channels=32,
+        num_res_blocks=1,
+        channel_mult=(1, 2),
+        attention_resolutions="8",
+        num_head_channels=8,
+    )
+    assert "mid" in params
+
+
+@pytest.mark.parametrize(
+    "knob", [dict(fused_conv=True), dict(s2b_conv=2), dict(use_checkpoint="block"), dict(fused_attention=False)]
+)
+def test_unported_knobs_raise(knob):
+    with pytest.raises(NotImplementedError):
+        UNetModel(dim=(3, 16, 16), device="cpu", **TINY, **knob)
+
+
+def test_resblock_updown_and_pool_resample_match_jax():
+    for extra in (dict(resblock_updown=True), dict(conv_resample=False)):
+        jnet, params, tnet, x, _ = _pair(**extra)
+        t = np.array([0.3, 0.6], np.float32)
+        with jax.default_matmul_precision("highest"):
+            ref = np.asarray(jax.jit(jnet.apply)({"params": params}, jnp.asarray(t), jnp.asarray(x)))
+        with torch.no_grad():
+            got = tnet(torch.from_numpy(t), torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(got, ref, atol=TOL, rtol=TOL)
