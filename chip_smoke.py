@@ -13,7 +13,12 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    kernel, the plain version and ``scaled_dot_product_attention`` (a
    yardstick only, never used by the port) beside the bound computed from
    the shape.
-4. The serving path at full width: ``configs/`` composed through the port's
+4. K1-bwd (``csrc/attention_bwd.cu``) against its plain version (the
+   explicit backward, itself checked against torch autograd through the
+   plain forward) at the training shapes; times of the kernel, the plain
+   version and the backward of ``scaled_dot_product_attention`` (yardstick
+   only) beside the bound.
+5. The serving path at full width: ``configs/`` composed through the port's
    config code, the flagship UNet (``model=conditional_flow_matching``, about
    71 M parameters) from a fixed seed with every parameter jittered (ADM
    zero-inits the output convs, which would make ``generate`` the identity
@@ -22,9 +27,19 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    few PNG requests over HTTP, then one tile batch through the config's own
    dopri5 solver. The launch counts are zeroed just before and read just
    after: K1 must have launched once per velocity evaluation.
-5. One f32 UNet forward on the card (TF32 off) against the same weights
+6. One f32 UNet forward on the card (TF32 off) against the same weights
    through the plain path on the CPU.
-6. A ``kernels`` JSON line, the card line, and ``{"ok": true, "device": ...}``
+7. The training path at full width: ``train(cfg)`` of
+   ``stain2stain_tpu_torch.train`` in process on
+   ``experiment=quality_synthetic_256`` (flagship UNet, batch 32 at 256 px,
+   bf16-mixed) cut to 256 training tiles and one epoch: 8 optimizer steps,
+   validation, checkpoints, test from the best checkpoint. The launch counts
+   are zeroed just before and read just after: K1-bwd must have launched once
+   per backward pass, K1-fwd once per net forward.
+8. One f32 train step of the flagship (batch 2, 256 px, dropout 0) on the
+   card with TF32 off against the same step through the plain path on the
+   CPU: loss and every parameter gradient.
+9. A ``kernels`` JSON line, the card line, and ``{"ok": true, "device": ...}``
    as the last line.
 
 It exits non-zero, printing no result, when no CUDA card is present or when
@@ -40,6 +55,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -58,6 +74,14 @@ MUFU_EX2_PER_CLK_PER_SM = 16
 
 TOL = {"float32": 5e-5, "bfloat16": 8e-3}  # max abs error vs the plain version
 UNET_REL_TOL = 2e-4  # f32 card vs CPU, TF32 off: summation order only
+# K1-bwd: max abs error over dq, dk, dv as a multiple of max|ref|. f32: the
+# sums over T keys and queries run in another order (measured ~2e-6); bf16:
+# the outputs are rounded to bf16, whose ulp is 2^-7 of the value, so up to
+# about 0.4 % of max|ref| plus the f32 summation order.
+BWD_REL_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# flagship f32 gradients, card (TF32 off) vs CPU, as a multiple of the
+# largest |gradient|: summation order over batch x 65536 pixels per weight
+GRAD_REL_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -147,6 +171,81 @@ def phase_kernels(exp_per_s: float) -> dict:
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"K1 disagrees with its plain version: {bad}")
+    return {"cases": results}
+
+
+def attention_bwd_bound(bh: int, t: int, d: int, dtype: str, exp_per_s: float) -> dict:
+    elem = 2 if dtype == "bfloat16" else 4
+    bytes_ms = 8 * bh * t * d * elem / PEAK_BYTES_PER_S * 1e3  # q, k, v, o, do read; dq, dk, dv written
+    flop_ms = 10 * bh * t * t * d / PEAK_FLOPS[dtype] * 1e3  # s, dv, dp, dq, dk products
+    exp_ms = bh * t * t / exp_per_s * 1e3  # one exponential per p
+    ops_ms = max(flop_ms, exp_ms)
+    return {
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes_ms": bytes_ms,
+        "flop_ms": flop_ms,
+        "exp_ms": exp_ms,
+    }
+
+
+def phase_k1_bwd(exp_per_s: float) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from stain2stain_tpu_torch.ops.attention import (
+        fused_attention_backward,
+        fused_attention_backward_reference,
+        fused_attention_reference,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("K1-bwd: TF32 off for matmul and cuDNN (the plain f32 version runs in full f32)")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = [
+        (512, 1024, 32, "bfloat16", "256-px training shape (batch 32, 16 heads), bf16: the main path"),
+        (512, 1024, 32, "float32", "256-px training shape, f32"),
+        (64, 4096, 32, "bfloat16", "512-px mid block at batch 4, bf16"),
+        (16, 1000, 32, "float32", "ragged T, f32"),
+        (16, 1000, 32, "bfloat16", "ragged T, bf16"),
+    ]
+    results = []
+    for bh, t, d, dtype, what in cases:
+        dt = getattr(torch, dtype)
+        q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=gen).to(dt) for _ in range(4))
+        scale = 1.0 / math.sqrt(d)
+        o = fused_attention_reference(q, k, v, scale)
+        got = fused_attention_backward(q, k, v, o, do, scale)
+        torch.cuda.synchronize()
+        ref = fused_attention_backward_reference(q, k, v, o, do, scale)
+        ref_max = max(r.float().abs().max().item() for r in ref)
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+        # the plain version against torch autograd through the plain forward
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        auto = torch.autograd.grad(fused_attention_reference(*leaves, scale), leaves, do)
+        auto_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(auto, ref))
+        del leaves, auto
+        tol = BWD_REL_TOL[dtype] * ref_max
+        ok = all(bool(torch.isfinite(g).all()) for g in got) and err <= tol and auto_err <= tol
+        ms = cuda_ms(lambda: fused_attention_backward(q, k, v, o, do, scale), repeats=10)
+        plain_ms = cuda_ms(lambda: fused_attention_backward_reference(q, k, v, o, do, scale), repeats=3, warmup=1)
+        # (1, BH, T, d): the 4-D layout SDPA's fused backends take
+        q4, k4, v4 = (x[None].detach().requires_grad_() for x in (q, k, v))
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+        library_ms = cuda_ms(
+            lambda: torch.autograd.grad(out4, (q4, k4, v4), do[None], retain_graph=True), repeats=10
+        )
+        row = dict(bh=bh, t=t, d=d, dtype=dtype, what=what, max_abs_err=err, autograd_vs_plain=auto_err,
+                   ref_max_abs=ref_max, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   **attention_bwd_bound(bh, t, d, dtype, exp_per_s))
+        log("K1-bwd " + json.dumps(row))
+        results.append(row)
+        del q, k, v, do, o, got, ref, q4, k4, v4, out4
+        torch.cuda.empty_cache()
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"K1-bwd disagrees with its plain version: {bad}")
     return {"cases": results}
 
 
@@ -311,6 +410,152 @@ def phase_unet_parity(net) -> dict:
     return row
 
 
+def step_clock():
+    """A training callback (instantiated from the config by ``_target_``) that
+    records the device-synchronized end time and loss of every optimizer step,
+    and counts the net's forward calls through a hook installed at fit start."""
+    import torch
+
+    from stain2stain_tpu_torch.training import Callback
+
+    class StepClock(Callback):
+        def __init__(self):
+            self.ends, self.losses, self.forwards, self.t0 = [], [], [0], None
+
+        def on_fit_start(self, trainer, task):
+            task.net.register_forward_hook(lambda *_: self.forwards.__setitem__(0, self.forwards[0] + 1))
+
+        def on_train_epoch_start(self, trainer, task):
+            torch.cuda.synchronize()
+            self.t0 = time.perf_counter()
+
+        def on_train_batch_end(self, trainer, task, metrics):
+            self.losses.append(float(metrics["loss"]))  # synchronizes
+            self.ends.append(time.perf_counter())
+
+    return StepClock()
+
+
+TRAIN_OVERRIDES = [
+    "experiment=quality_synthetic_256",
+    "trainer.accelerator=gpu",
+    "data.n_train=256",
+    "data.n_val=32",
+    "data.n_test=32",
+    "trainer.max_epochs=1",
+    "trainer.check_val_every_n_epoch=1",
+    "test=true",
+]
+
+
+def phase_train(card: str, work: Path) -> dict:
+    """The training path at full width through ``stain2stain_tpu_torch.train``."""
+    import torch
+
+    from stain2stain_tpu_torch.config import compose
+    from stain2stain_tpu_torch.ops.attention import fused_attention, fused_attention_backward
+    from stain2stain_tpu_torch.train import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # torch's defaults for training:
+    torch.backends.cudnn.allow_tf32 = True  # f32 matmul, TF32 cuDNN convs (bf16 here anyway)
+    overrides = TRAIN_OVERRIDES + [f"data.data_dir={work / 'data'}"]
+    cfg = compose(REPO / "configs", "train.yaml", overrides)
+    cfg["runtime"] = {"output_dir": str(work / "out"), "cwd": str(work)}
+    cfg["extras"]["print_config"] = False
+    log("train: " + " ".join(overrides))
+
+    cfg["callbacks"]["step_clock"] = {"_target_": "__main__.step_clock"}
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts zeroed just before, read just after --------
+    fused_attention.launches = 0
+    fused_attention_backward.launches = 0
+    t0 = time.perf_counter()
+    metrics, objects = train(cfg)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    fwd_launches, bwd_launches = fused_attention.launches, fused_attention_backward.launches
+    # ---- end of the main path -----------------------------------------------
+    clock = objects["callbacks"][-1]
+    trainer = objects["trainer"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = len(clock.losses)
+    durations = [b - a for a, b in zip([clock.t0] + clock.ends[:-1], clock.ends)]
+    steady = durations[2:8]
+    step_ms = statistics.median(steady) * 1e3 if steady else float("nan")
+    batch = int(cfg["data"]["batch_size"])
+    ckpt = trainer.checkpoint_callback
+    summary = dict(
+        card=card, steps=steps, global_step=trainer.global_step, batch=batch,
+        step_ms_median_3_8=step_ms, step_ms=[d * 1e3 for d in durations], tiles_per_s=batch / (step_ms / 1e3),
+        peak_mem_gib=peak_gib, wall_s=wall_s, losses=clock.losses, forwards=clock.forwards[0],
+        k1_fwd_launches=fwd_launches, k1_bwd_launches=bwd_launches,
+        val_loss=metrics.get("val/loss"), test_loss=metrics.get("test/loss"),
+        best=Path(ckpt.best_model_path).name if ckpt and ckpt.best_model_path else None,
+        n_params=sum(p.numel() for p in objects["model"].net.parameters()),
+        dtype=str(objects["model"].net.dtype),
+    )
+    log("train " + json.dumps(summary))
+    finite = all(math.isfinite(x) for x in clock.losses + [summary["val_loss"] or math.nan, summary["test_loss"] or math.nan])
+    if steps != 8 or not finite:
+        raise AssertionError(f"training did not run 8 finite steps with finite val/test losses: {summary}")
+    if not summary["best"] or not (Path(ckpt.last_model_path) / "state.pt").is_file():
+        raise AssertionError("training wrote no best or last checkpoint")
+    if bwd_launches == 0 or bwd_launches != steps:
+        raise AssertionError(f"K1-bwd launches {bwd_launches} != backward passes {steps}")
+    if fwd_launches == 0 or fwd_launches != clock.forwards[0]:
+        raise AssertionError(f"K1-fwd launches {fwd_launches} != net forward calls {clock.forwards[0]}")
+    return summary
+
+
+def phase_grad_parity() -> dict:
+    """One f32 train step of the flagship on the card vs the CPU plain path."""
+    import numpy as np
+    import torch
+
+    from stain2stain_tpu_torch.config import compose, instantiate
+    from stain2stain_tpu_torch.ops.attention import fused_attention_backward
+    from stain2stain_tpu_torch.tasks import ConditionalFlowMatchingModule
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("grad-parity: TF32 off for matmul and cuDNN")
+    cfg = compose(REPO / "configs", "train.yaml", ["model.net.dropout=0.0"])
+    torch.manual_seed(0)
+    nets = {dev: instantiate(cfg.model.net, device=dev) for dev in ("cuda", "cpu")}
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():  # jitter every parameter: ADM zero-inits the output convs
+        for p in nets["cpu"].parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    nets["cuda"].load_state_dict(nets["cpu"].state_dict())
+    rng = np.random.default_rng(4)
+    batch = tuple(rng.integers(0, 256, size=(2, 256, 256, 3), dtype=np.uint8) for _ in range(2))
+    t = torch.tensor([0.3, 0.8])
+    out = {}
+    for dev, net in nets.items():
+        task = ConditionalFlowMatchingModule(net=net, device=dev)
+        prepared = task.prepare_batch(batch, train=False)
+        t0 = time.perf_counter()
+        loss, _ = task.loss_and_metrics(prepared, train=True, t=t)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = (loss.item(), {n: p.grad.detach().cpu() for n, p in net.named_parameters()},
+                    time.perf_counter() - t0)
+    (loss_gpu, g_gpu, gpu_s), (loss_cpu, g_cpu, cpu_s) = out["cuda"], out["cpu"]
+    ref_max = max(g.abs().max().item() for g in g_cpu.values())
+    err = max((g_gpu[n] - g_cpu[n]).abs().max().item() for n in g_cpu)
+    worst = max(g_cpu, key=lambda n: (g_gpu[n] - g_cpu[n]).abs().max().item())
+    row = dict(loss_card=loss_gpu, loss_cpu=loss_cpu, max_abs_grad_err=err, worst_param=worst,
+               ref_max_abs_grad=ref_max, tol=GRAD_REL_TOL * ref_max, card_step_s=gpu_s, cpu_step_s=cpu_s,
+               k1_bwd_launches=fused_attention_backward.launches)
+    row["ok"] = (err <= row["tol"] and abs(loss_gpu - loss_cpu) <= 1e-4 * max(1.0, abs(loss_cpu))
+                 and all(torch.isfinite(g).all() for g in g_gpu.values()))
+    log("grad-parity " + json.dumps(row))
+    if not row["ok"]:
+        raise AssertionError(f"f32 flagship gradients on the card disagree with the CPU plain path: {row}")
+    return row
+
+
 def _device_us(event) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, name):
@@ -384,12 +629,87 @@ def phase_profile(net, card: str) -> dict:
     return result
 
 
+def _train_kernel_category(name: str) -> str:
+    """A device kernel's layer, from its name."""
+    if "attention_" in name:
+        return "attention kernels K1-fwd/K1-bwd"
+    if "nchwToNhwc" in name or "nhwcToNchw" in name:
+        return "cuDNN layout transposes"
+    if any(s in name for s in ("xmma", "gemm", "conv", "wgrad", "dgrad", "cutlass", "cudnn")):
+        return "convolutions and matmuls"
+    if "<int" in name:
+        return "int32 elementwise (dropout hash)"
+    if "reduce_kernel" in name:
+        return "reductions (norm statistics, sums)"
+    if "copy" in name or "Cat" in name:
+        return "copies and casts"
+    return "other elementwise"
+
+
+def phase_profile_train(card: str) -> dict:
+    """Where the time of one train step goes (``--profile`` only).
+
+    The flagship task at batch 32, 256 px, bf16-mixed, through the trainer's
+    own step (augmentation, loss, backward, Adam), under ``torch.profiler``
+    for three steps after two warm-up steps: device time by kernel, the
+    device's busy share of the wall time, and the attention kernels' share.
+    """
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stain2stain_tpu_torch.config import compose, instantiate
+    from stain2stain_tpu_torch.training import Trainer
+
+    torch.backends.cudnn.allow_tf32 = True  # torch's defaults for training
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = compose(REPO / "configs", "train.yaml", ["experiment=quality_synthetic_256", "trainer.accelerator=gpu"])
+    torch.manual_seed(0)
+    task = instantiate(cfg.model, net=instantiate(cfg.model.net, device="cuda"), device="cuda")
+    trainer = Trainer(accelerator="gpu", precision="bf16-mixed", logger=False)
+    trainer._prepare_task(task)
+    trainer._init_state(task)
+    rng = np.random.default_rng(0)
+    batch = tuple(torch.from_numpy(rng.integers(0, 256, (32, 256, 256, 3), dtype=np.uint8)).cuda() for _ in range(2))
+    augment = {"crop_size": 256, "hflip": True, "vflip": True}
+    for _ in range(2):
+        trainer._train_step(task, batch, augment)
+    torch.cuda.synchronize()
+    steps = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer._train_step(task, batch, augment)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    if not kernels:
+        raise RuntimeError("torch.profiler recorded no device time")
+    busy_us = sum(_device_us(e) for e in kernels)
+    top = sorted(kernels, key=_device_us, reverse=True)[:15]
+    rows = [dict(kernel=e.key[:90], device_ms=_device_us(e) / 1e3 / steps, calls=e.count / steps,
+                 share=_device_us(e) / busy_us) for e in top]
+    for r in rows:
+        log("profile-train-kernel " + json.dumps(r))
+    shares: dict[str, float] = {}
+    for e in kernels:
+        category = _train_kernel_category(e.key)
+        shares[category] = shares.get(category, 0.0) + _device_us(e) / busy_us
+    result = dict(card=card, steps=steps, per_step_wall_ms=wall_us / 1e3 / steps,
+                  per_step_device_busy_ms=busy_us / 1e3 / steps,
+                  device_idle_share=max(0.0, 1.0 - busy_us / wall_us),
+                  shares_of_busy_time=dict(sorted(shares.items(), key=lambda kv: -kv[1])))
+    log("profile-train " + json.dumps(result))
+    return result
+
+
 def main() -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one tile batch and one request (where the time goes)")
+                        help="also profile one tile batch, one request and train steps (where the time goes)")
     args = parser.parse_args()
     try:
         import torch
@@ -426,35 +746,63 @@ def main() -> int:
                 log(f"ptxas {src}: {line.strip()}")
     log(f"build: {build_s:.3f} s for {len(_build.SOURCES)} source(s)")
 
-    # 3. K1 against its plain version
+    # 3-4. K1-fwd and K1-bwd against their plain versions
     k1 = phase_kernels(exp_per_s)
+    k1_bwd = phase_k1_bwd(exp_per_s)
 
-    # 4. the serving path at full width
+    # 5. the serving path at full width
     summary, net = phase_slice(card)
 
-    # 5. kernel path vs plain path, end to end
+    # 6. kernel path vs plain path, end to end
     parity = phase_unet_parity(net)
     if args.profile:
         phase_profile(net, card)
+    del net
+    torch.cuda.empty_cache()
 
-    # 6. result lines
-    main_case = k1["cases"][0]  # the shape and dtype the main path runs
-    kernels = [{
-        "name": "attention_fwd (K1-fwd)",
-        "route": "cuda",
-        "source": "stain2stain_tpu_torch/csrc/attention_fwd.cu",
-        "replaces": "stain2stain_tpu/ops/pallas_attention.py:64",
-        "launches": summary["k1_launches"],
-        "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-        "shape": [main_case["bh"], main_case["t"], main_case["d"]],
-        "dtype": main_case["dtype"],
-        "passed": all(c["ok"] for c in k1["cases"]) and parity["ok"],
-    }]
+    # 7. the training path at full width, its files in a gitignored scratch dir
+    (REPO / "scratch").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_", dir=REPO / "scratch") as work:
+        train_summary = phase_train(card, Path(work))
+    torch.cuda.empty_cache()
+
+    # 8. f32 gradients, card vs CPU
+    grad = phase_grad_parity()
+    if args.profile:
+        torch.cuda.empty_cache()
+        phase_profile_train(card)
+
+    # 9. result lines
+    def row(name, source, replaces, case, launches, by_path, passed):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches,
+            "launches_by_path": by_path,
+            "max_abs_err": case["max_abs_err"],
+            "ms": case["ms"],
+            "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"],
+            "library_ms": case["library_ms"],
+            "shape": [case["bh"], case["t"], case["d"]],
+            "dtype": case["dtype"],
+            "passed": passed,
+        }
+
+    # each kernel's first case is the shape and dtype its main path runs
+    kernels = [
+        row("attention_fwd (K1-fwd)", "stain2stain_tpu_torch/csrc/attention_fwd.cu",
+            "stain2stain_tpu/ops/pallas_attention.py:64", k1["cases"][0], summary["k1_launches"],
+            {"serve": summary["k1_launches"], "train": train_summary["k1_fwd_launches"]},
+            all(c["ok"] for c in k1["cases"]) and parity["ok"]),
+        row("attention_bwd (K1-bwd)", "stain2stain_tpu_torch/csrc/attention_bwd.cu",
+            "stain2stain_tpu/ops/pallas_attention.py:78", k1_bwd["cases"][0], train_summary["k1_bwd_launches"],
+            {"train": train_summary["k1_bwd_launches"]},
+            all(c["ok"] for c in k1_bwd["cases"]) and grad["ok"]),
+    ]
     log(f"total: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

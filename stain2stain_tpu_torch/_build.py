@@ -22,7 +22,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("attention_fwd.cu",)
+SOURCES = ("attention_fwd.cu", "attention_bwd.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

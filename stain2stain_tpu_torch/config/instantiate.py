@@ -13,7 +13,9 @@ Supported features:
 - ``_partial_: true`` → returns ``functools.partial``
 - ``_recursive_: false`` → children passed as raw configs
 - ``_args_``: positional arguments
-- keyword overrides passed to :func:`instantiate` itself
+- keyword overrides passed to :func:`instantiate` itself; a config node they
+  replace is not instantiated (the trainer's device decides where the net
+  is built, so the config's own net must not be built first)
 """
 
 from __future__ import annotations
@@ -101,13 +103,10 @@ def instantiate(config: Any, *args: Any, **kwargs: Any) -> Any:
     for key in config:
         if key in ("_target_", "_partial_", "_recursive_", "_args_", "_convert_"):
             continue
-        raw = config.get_raw(key)
-        if raw == MISSING:
-            if key not in kwargs:
-                raise InstantiationError(
-                    f"Missing mandatory value for '{key}' in _target_={target}"
-                )
-            continue  # the caller supplies it — resolving '???' would raise
+        if key in kwargs:
+            continue  # the caller's object replaces this node; it is not built
+        if config.get_raw(key) == MISSING:
+            raise InstantiationError(f"Missing mandatory value for '{key}' in _target_={target}")
         call_kwargs[key] = _resolve_node(config[key], recursive)
     call_kwargs.update(kwargs)
 

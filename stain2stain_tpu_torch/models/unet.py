@@ -5,7 +5,9 @@ Same architecture and numerics as the flax ``UNetModel``:
 - timestep embedding → 2-layer SiLU MLP (model_channels → 4·model_channels),
   plus an optional class embedding (``class_cond``)
 - residual blocks: GN → SiLU → 3×3 conv, FiLM time conditioning
-  (``use_scale_shift_norm``: h = norm(h)·(1+scale)+shift), zero-init out conv
+  (``use_scale_shift_norm``: h = norm(h)·(1+scale)+shift), dropout
+  (:class:`..ops.dropout.FastDropout`, active in training mode only), zero-init
+  out conv
 - self-attention at the configured feature resolutions and in the middle
   block, ``num_head_channels`` per head, through :mod:`..ops.attention`
   (kernel K1 on the card)
@@ -14,7 +16,10 @@ Same architecture and numerics as the flax ``UNetModel``:
 The public layout is the JAX package's: ``forward(t, x)`` takes and returns
 NHWC (B, H, W, C); inside, the net runs NCHW. ``dtype`` is the compute type:
 parameters stay f32 and each conv/linear casts its input and weights to it,
-the output is f32.
+the output is f32. In training mode (``net.train()``) gradients flow through
+the attention kernels' ``autograd.Function``, the norms' memory-lean
+backwards and the dropout; each dropout layer draws its seed from the
+``generator`` passed to ``forward``.
 
 ``state_dict()`` keeps the torchcfm ``UNetModel`` key layout (``time_embed``,
 ``input_blocks``, ``middle_block``, ``output_blocks``, ``out``) and its
@@ -36,6 +41,7 @@ from torch import nn
 
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import attention
+from ..ops.dropout import FastDropout
 from ..ops.norms import group_norm, group_norm_film_silu, group_norm_silu
 from ..ops.time_embedding import timestep_embedding_adm
 
@@ -118,7 +124,7 @@ class ResBlock(nn.Module):
         self.out_layers = nn.Sequential(
             _norm(out_channels),
             nn.SiLU(),
-            nn.Dropout(dropout),
+            FastDropout(dropout),
             nn.Conv2d(out_channels, out_channels, 3, padding=1),
         )
         nn.init.zeros_(self.out_layers[3].weight)
@@ -127,7 +133,10 @@ class ResBlock(nn.Module):
             nn.Conv2d(channels, out_channels, 1) if channels != out_channels else nn.Identity()
         )
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, emb: torch.Tensor, dtype: torch.dtype,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
         norm_in = self.in_layers[0]
         h = group_norm_silu(x, norm_in.weight, norm_in.bias, norm_in.num_groups).to(dtype)
         if self.up:
@@ -143,7 +152,7 @@ class ResBlock(nn.Module):
             h = group_norm_film_silu(h, norm_out.weight, norm_out.bias, scale, shift, norm_out.num_groups)
         else:
             h = group_norm_silu(h + emb_out, norm_out.weight, norm_out.bias, norm_out.num_groups)
-        h = self.out_layers[2](h.to(dtype))  # dropout: the identity in eval mode
+        h = self.out_layers[2](h.to(dtype), generator)  # dropout: the identity in eval mode
         h = _conv(self.out_layers[3], h, dtype)
 
         if isinstance(self.skip_connection, nn.Conv2d):
@@ -332,18 +341,23 @@ class UNetModel(nn.Module):
         nn.init.zeros_(self.out[2].bias)
         self.to(device)
 
-    def _block(self, mods: nn.ModuleList, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def _block(self, mods: nn.ModuleList, h: torch.Tensor, emb: torch.Tensor, generator) -> torch.Tensor:
         for m in mods:
             if isinstance(m, ResBlock):
-                h = m(h, emb, self.dtype)
+                h = m(h, emb, self.dtype, generator)
             elif isinstance(m, nn.Conv2d):  # the stem
                 h = _conv(m, h, self.dtype)
             else:
                 h = m(h, self.dtype)
         return h
 
-    def forward(self, t: torch.Tensor, x: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """t: () or (B,) in [0,1]; x: (B, H, W, C) NHWC; y: (B,) int labels."""
+    def forward(
+        self, t: torch.Tensor, x: torch.Tensor, y: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """t: () or (B,) in [0,1]; x: (B, H, W, C) NHWC; y: (B,) int labels;
+        ``generator``: the dropout seeds' source in training mode (torch's
+        default generator if None)."""
         dtype = self.dtype
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device)
         if t.ndim == 0:
@@ -359,11 +373,11 @@ class UNetModel(nn.Module):
         h = x.permute(0, 3, 1, 2).contiguous()
         skips = []
         for mods in self.input_blocks:
-            h = self._block(mods, h, emb)
+            h = self._block(mods, h, emb, generator)
             skips.append(h)
-        h = self._block(self.middle_block, h, emb)
+        h = self._block(self.middle_block, h, emb, generator)
         for mods in self.output_blocks:
-            h = self._block(mods, torch.cat([h, skips.pop()], dim=1), emb)
+            h = self._block(mods, torch.cat([h, skips.pop()], dim=1), emb, generator)
 
         norm = self.out[0]
         h = group_norm_silu(h, norm.weight, norm.bias, norm.num_groups).to(dtype)

@@ -1,0 +1,40 @@
+"""Training harness of the port (counterpart of ``stain2stain_tpu/training``):
+Trainer, callbacks, loggers, optimizers, train state and checkpoints."""
+
+from .callbacks import (
+    Callback,
+    EarlyStopping,
+    ImageLogger,
+    LearningRateMonitor,
+    ModelCheckpoint,
+    ModelSummary,
+    ProgressBar,
+    RichModelSummary,
+    RichProgressBar,
+)
+from .loggers import CSVLogger, FileLogger, Logger
+from .optim import SGD, Adam, AdamW, ReduceLROnPlateau
+from .state import CheckpointIO, TrainState
+from .trainer import Trainer
+
+__all__ = [
+    "Trainer",
+    "TrainState",
+    "CheckpointIO",
+    "Callback",
+    "ModelCheckpoint",
+    "EarlyStopping",
+    "ModelSummary",
+    "RichModelSummary",
+    "ProgressBar",
+    "RichProgressBar",
+    "LearningRateMonitor",
+    "ImageLogger",
+    "Logger",
+    "CSVLogger",
+    "FileLogger",
+    "Adam",
+    "AdamW",
+    "SGD",
+    "ReduceLROnPlateau",
+]

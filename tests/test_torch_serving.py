@@ -195,8 +195,15 @@ def test_config_tree_instantiates_port_classes():
     assert isinstance(net, UNetModel) and net.dropout == 0.1
     solver = instantiate(cfg.model.solver)()
     assert isinstance(solver, SolverConfig) and solver.solver == "dopri5"
-    with pytest.raises(InstantiationError, match=r"stain2stain_tpu\.training\.optim\.Adam"):
-        instantiate(cfg.model)
+    # the task, with its net built where the caller says
+    task = instantiate(cfg.model, net=net)
+    assert isinstance(task, ConditionalFlowMatchingModule) and task.net is net
+    optimizer, scheduler = task.configure_optimizers()
+    assert type(optimizer).__module__ == "stain2stain_tpu_torch.training.optim"
+    assert scheduler.patience == 10
+    # a target the port does not have yet raises, naming it
+    with pytest.raises(InstantiationError, match=r"stain2stain_tpu\.training\.TensorBoardLogger"):
+        instantiate({"_target_": "stain2stain_tpu.training.TensorBoardLogger"})
 
 
 def test_serve_cli_build_server(nets, tmp_path, monkeypatch):
@@ -266,9 +273,13 @@ def test_port_imports_nothing_of_jax():
         "import sys\n"
         "import stain2stain_tpu_torch, stain2stain_tpu_torch.serve, stain2stain_tpu_torch.server\n"
         "import stain2stain_tpu_torch.models.unet, stain2stain_tpu_torch.compat\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'stain2stain_tpu')\n"
-        "             or m.startswith(('jax.', 'jaxlib', 'flax.', 'stain2stain_tpu.')))\n"
-        "assert 'stain2stain_tpu_torch.serve' in sys.modules\n"
+        "import stain2stain_tpu_torch.train, stain2stain_tpu_torch.training, stain2stain_tpu_torch.data\n"
+        "import stain2stain_tpu_torch.data.synthetic_module, stain2stain_tpu_torch.data.device_cache\n"
+        "import stain2stain_tpu_torch.data.native, stain2stain_tpu_torch.utils.utils\n"
+        "import stain2stain_tpu_torch.ops.cfm, stain2stain_tpu_torch.ops.dropout, stain2stain_tpu_torch.ops.losses\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax', 'stain2stain_tpu')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'flax.', 'optax.', 'stain2stain_tpu.')))\n"
+        "assert 'stain2stain_tpu_torch.serve' in sys.modules and 'stain2stain_tpu_torch.train' in sys.modules\n"
         "print(bad)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO_ROOT))
