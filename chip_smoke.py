@@ -39,8 +39,25 @@ Phases (any failure ends the script with a non-zero exit and no result line):
 8. One f32 train step of the flagship (batch 2, 256 px, dropout 0) on the
    card with TF32 off against the same step through the plain path on the
    CPU: loss and every parameter gradient.
-9. A ``kernels`` JSON line, the card line, and ``{"ok": true, "device": ...}``
-   as the last line.
+9. K2–K5 (``csrc/conv3x3_fwd.cu`` as K2 and K3, ``csrc/prologue_grad.cu``,
+   ``csrc/conv3x3_wgrad.cu``) against their plain versions on the card at the
+   flagship's first-level shape (B 32, 256², C = D = 128) and its largest-C
+   shape (B 32, 32², C 1024 → D 512), bf16, affine + SiLU, dropout 0.1, with
+   the stated tolerances; times of each kernel, its plain version and the
+   cuDNN call for the same function (a yardstick only, never used by the
+   port) beside the bound computed from the shape; K4 and K5 run twice and
+   must agree bit for bit; K2 with an identity centre tap must reproduce
+   ``hash_mask``'s dropout mask bit for bit.
+10. The training path of phase 7 again with ``+model.net.fused_conv=true``
+    on the same synthetic data: K2 must have launched 44 times per net
+    forward (22 ResBlocks × 2 convs) and K3, K4, K5 44 times per backward
+    pass; the phase-7 run must have launched none of them.
+11. One bf16 train step of the fused flagship (batch 2, 256 px, dropout 0.1
+    from one generator seed) on the card (K2–K5) against the same step on
+    the CPU (their plain versions): loss and every parameter gradient; and
+    the fused against the unfused net on the card, same weights, eval.
+12. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5), the card line, and
+    ``{"ok": true, "device": ...}`` as the last line.
 
 It exits non-zero, printing no result, when no CUDA card is present or when
 the port's package is not beside it.
@@ -82,6 +99,22 @@ BWD_REL_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 # flagship f32 gradients, card (TF32 off) vs CPU, as a multiple of the
 # largest |gradient|: summation order over batch x 65536 pixels per weight
 GRAD_REL_TOL = 1e-3
+# K2–K5 against their plain versions, max abs error as a multiple of max|ref|.
+# bf16 outputs (K2, K3, K4's dx): rounded to bf16 (ulp 2^-8..2^-7 of the
+# value) after f32 sums taken in another order. f32 outputs (dscale, dshift,
+# dW, dbias): the same bf16 products summed in f32 in another order, over up
+# to 2.1 M pixels.
+CONV_REL_TOL = {"bf16": 1e-2, "f32": 1e-3}
+# the fused flagship's bf16 gradients, card vs CPU, as a multiple of the
+# largest |gradient|: bf16 activations round at the same points on both sides,
+# but the sums run in another order and a rounding flip propagates
+FUSED_GRAD_REL_TOL = 3e-2
+# the fused against the unfused flagship, same weights, bf16 eval forward on the
+# card, as a multiple of max|unfused|: the two round to bf16 at other points
+# (the fused conv adds its bias in f32), one ulp (2^-8) per block over 22 blocks
+FUSED_EVAL_REL_TOL = 3e-2
+FUSED_OVERRIDE = "+model.net.fused_conv=true"
+FLAGSHIP_FUSED_CONVS = 44  # 22 ResBlocks x 2 fused convs per net forward
 
 
 def log(msg: str) -> None:
@@ -161,7 +194,7 @@ def phase_kernels(exp_per_s: float) -> dict:
         library_ms = cuda_ms(
             lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], scale=scale), repeats=20
         )
-        row = dict(bh=bh, t=t, d=d, dtype=dtype, what=what, max_abs_err=err, tol=TOL[dtype],
+        row = dict(bh=bh, t=t, d=d, shape=[bh, t, d], dtype=dtype, what=what, max_abs_err=err, tol=TOL[dtype],
                    ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    **attention_bound(bh, t, d, dtype, exp_per_s))
         log("K1 " + json.dumps(row))
@@ -236,7 +269,8 @@ def phase_k1_bwd(exp_per_s: float) -> dict:
         library_ms = cuda_ms(
             lambda: torch.autograd.grad(out4, (q4, k4, v4), do[None], retain_graph=True), repeats=10
         )
-        row = dict(bh=bh, t=t, d=d, dtype=dtype, what=what, max_abs_err=err, autograd_vs_plain=auto_err,
+        row = dict(bh=bh, t=t, d=d, shape=[bh, t, d], dtype=dtype, what=what, max_abs_err=err,
+                   autograd_vs_plain=auto_err,
                    ref_max_abs=ref_max, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    **attention_bwd_bound(bh, t, d, dtype, exp_per_s))
         log("K1-bwd " + json.dumps(row))
@@ -247,6 +281,150 @@ def phase_k1_bwd(exp_per_s: float) -> dict:
     if bad:
         raise AssertionError(f"K1-bwd disagrees with its plain version: {bad}")
     return {"cases": results}
+
+
+def conv_bound(kernel: str, b: int, h: int, w: int, c: int, d: int, exp_per_s: float) -> dict:
+    """The least time for one call at (B, H, W, C → D): each input read once,
+    each output written once, the operations at the card's peak for their type."""
+    px = b * h * w
+    if kernel == "K4":  # x, dn read, dx written (bf16); scale, shift read, dscale, dshift written (f32)
+        bytes_ = 3 * 2 * px * c + 4 * 4 * b * c
+        flop_ms = 14 * px * c / PEAK_FLOPS["float32"] * 1e3  # affine, SiLU', mask, dx, two sums
+        exp_ms = px * c / exp_per_s * 1e3  # one exponential per element
+        ops_ms = max(flop_ms, exp_ms)
+    else:
+        bytes_ = {  # activations bf16, weights bf16 read or f32 written, scale/shift/bias f32
+            "K2": 2 * px * (c + d) + 2 * 9 * c * d + 4 * (2 * b * c + d),
+            "K3": 2 * px * (d + c) + 2 * 9 * c * d,
+            "K5": 2 * px * (c + d) + 4 * (2 * b * c) + 4 * (9 * c * d + d),
+        }[kernel]
+        ops_ms = 2 * px * 9 * c * d / PEAK_FLOPS["bfloat16"] * 1e3  # tensor-core products
+    bytes_ms = bytes_ / PEAK_BYTES_PER_S * 1e3
+    return {
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes_ms": bytes_ms,
+        "ops_ms": ops_ms,
+    }
+
+
+def phase_conv_kernels(exp_per_s: float) -> dict:
+    """K2–K5 against their plain versions at the flagship's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from stain2stain_tpu_torch.ops import conv
+    from stain2stain_tpu_torch.ops.dropout import hash_mask
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("K2-K5: TF32 off for matmul and cuDNN (the plain versions run in full f32)")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16 = torch.bfloat16
+    rate, seed = 0.1, 1234567
+    cases = [
+        (32, 256, 256, 128, 128, "flagship first level (B 32, 256 px): the main path's most pixels"),
+        (32, 32, 32, 1024, 512, "flagship lowest level (B 32, 32 px): the largest C"),
+    ]
+    rows: dict[str, list] = {"K2": [], "K3": [], "K4": [], "K5": []}
+    masks = []
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    def record(name, b, h, w, c, d, what, got, ref, kinds, ms, plain_ms, library_ms, extra=None):
+        err, ok, ref_max = 0.0, True, 0.0
+        for g, r, kind in zip(got, ref, kinds):
+            r_max = r.float().abs().max().item()
+            e = (g.float() - r.float()).abs().max().item()
+            ok = ok and bool(torch.isfinite(g).all()) and e <= CONV_REL_TOL[kind] * r_max
+            err, ref_max = max(err, e), max(ref_max, r_max)
+        row = dict(name=name, shape=[b, h, w, c, d], what=what, dtype="bfloat16", max_abs_err=err,
+                   ref_max_abs=ref_max, tol_rel=[CONV_REL_TOL[k] for k in kinds], ok=ok, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms, **(extra or {}),
+                   **conv_bound(name, b, h, w, c, d, exp_per_s))
+        log(f"{name} " + json.dumps(row))
+        rows[name].append(row)
+
+    for b, h, w, c, d, what in cases:
+        x = randn(b, h, w, c).to(bf16)
+        wt = (randn(3, 3, c, d) / (3.0 * math.sqrt(c))).to(bf16)
+        bias = 0.1 * randn(d)
+        scale = 1.0 + 0.2 * randn(b, c)
+        shift = 0.2 * randn(b, c)
+        dy = randn(b, h, w, d).to(bf16)
+        kw = dict(scale=scale, shift=shift, act="silu", dropout_rate=rate, seed=seed)
+        # the normalized input and weights of the cuDNN yardsticks (channels-last memory)
+        z = x.float() * scale[:, None, None, :] + shift[:, None, None, :]
+        n_ref = (z * torch.sigmoid(z) * conv.keep_mask(seed, x.shape, rate, "cuda")).to(bf16)
+        n_nchw, dy_nchw = n_ref.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        wi_oihw = torch.flip(wt, dims=(0, 1)).permute(2, 3, 0, 1).contiguous(memory_format=torch.channels_last)
+        bias16 = bias.to(bf16)
+
+        y = conv.fused_conv3x3(x, wt, bias, **kw)
+        torch.cuda.synchronize()
+        record("K2", b, h, w, c, d, what, [y], [conv.fused_conv3x3_reference(x, wt, bias, **kw)], ["bf16"],
+               cuda_ms(lambda: conv.fused_conv3x3(x, wt, bias, **kw), repeats=10),
+               cuda_ms(lambda: conv.fused_conv3x3_reference(x, wt, bias, **kw), repeats=3, warmup=1),
+               cuda_ms(lambda: F.conv2d(n_nchw, w_oihw, bias16, padding=1), repeats=10))
+        del y
+
+        dn = conv.conv3x3_input_grad(dy, wt)
+        torch.cuda.synchronize()
+        dn_ref = conv.conv3x3_input_grad_reference(dy, wt)
+        record("K3", b, h, w, c, d, what, [dn], [dn_ref], ["bf16"],
+               cuda_ms(lambda: conv.conv3x3_input_grad(dy, wt), repeats=10),
+               cuda_ms(lambda: conv.conv3x3_input_grad_reference(dy, wt), repeats=3, warmup=1),
+               cuda_ms(lambda: F.conv2d(dy_nchw, wi_oihw, padding=1), repeats=10))
+        del dn
+
+        got = conv.prologue_grad(x, dn_ref, **kw)
+        again = conv.prologue_grad(x, dn_ref, **kw)
+        torch.cuda.synchronize()
+        det = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+        record("K4", b, h, w, c, d, what, got, conv.prologue_grad_reference(x, dn_ref, **kw),
+               ["bf16", "f32", "f32"],
+               cuda_ms(lambda: conv.prologue_grad(x, dn_ref, **kw), repeats=10),
+               cuda_ms(lambda: conv.prologue_grad_reference(x, dn_ref, **kw), repeats=3, warmup=1),
+               None, {"deterministic": det})
+        rows["K4"][-1]["ok"] &= det
+        del got, again, dn_ref
+
+        got = conv.conv3x3_weight_grad(x, dy, **kw)
+        again = conv.conv3x3_weight_grad(x, dy, **kw)
+        torch.cuda.synchronize()
+        det = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+        record("K5", b, h, w, c, d, what, got, conv.conv3x3_weight_grad_reference(x, dy, **kw), ["f32", "f32"],
+               cuda_ms(lambda: conv.conv3x3_weight_grad(x, dy, **kw), repeats=5),
+               cuda_ms(lambda: conv.conv3x3_weight_grad_reference(x, dy, **kw), repeats=3, warmup=1),
+               cuda_ms(lambda: torch.nn.grad.conv2d_weight(n_nchw, (d, c, 3, 3), dy_nchw, padding=1), repeats=5),
+               {"deterministic": det})
+        rows["K5"][-1]["ok"] &= det
+        del got, again
+
+        # the mask, bit for bit: K2 with an identity centre tap returns its n
+        w_id = torch.zeros(3, 3, c, c, device="cuda", dtype=bf16)
+        w_id[1, 1] = torch.eye(c, device="cuda", dtype=bf16)
+        m = conv.fused_conv3x3(x, w_id, None, **kw)
+        mask = hash_mask(seed, (b, c, h, w), rate, torch.float32, "cuda").permute(0, 2, 3, 1)
+        want = (z * torch.sigmoid(z) * mask).to(bf16)
+        mask_mismatch = int(((m == 0) != (mask == 0)).sum())
+        # the values may differ by one bf16 ulp where SiLU's exponential rounds otherwise
+        ulp_violations = int(((m.float() - want.float()).abs() > 2.0 ** -7 * want.float().abs()).sum())
+        row = dict(shape=[b, h, w, c], dropped_share=float((mask == 0).float().mean()),
+                   mask_mismatches=mask_mismatch, values_beyond_one_ulp=ulp_violations,
+                   max_abs_diff=float((m.float() - want.float()).abs().max()))
+        row["ok"] = mask_mismatch == 0 and ulp_violations == 0 and 0.09 < row["dropped_share"] < 0.11
+        log("K2-mask " + json.dumps(row))
+        masks.append(row)
+        del x, wt, dy, z, n_ref, n_nchw, dy_nchw, w_oihw, wi_oihw, w_id, m, mask, want
+        torch.cuda.empty_cache()
+
+    bad = [r for rs in rows.values() for r in rs if not r["ok"]] + [r for r in masks if not r["ok"]]
+    if bad:
+        raise AssertionError(f"K2-K5 disagree with their plain versions or the mask: {bad}")
+    return {"rows": rows, "masks": masks}
 
 
 def _test_image(h: int, w: int, seed: int):
@@ -448,32 +626,39 @@ TRAIN_OVERRIDES = [
 ]
 
 
-def phase_train(card: str, work: Path) -> dict:
-    """The training path at full width through ``stain2stain_tpu_torch.train``."""
+def phase_train(card: str, work: Path, fused: bool = False) -> dict:
+    """The training path at full width through ``stain2stain_tpu_torch.train``;
+    ``fused`` adds ``+model.net.fused_conv=true`` (the ResBlocks through K2–K5).
+    The synthetic data under ``work/data`` is made once and reused."""
     import torch
 
     from stain2stain_tpu_torch.config import compose
+    from stain2stain_tpu_torch.ops import conv
     from stain2stain_tpu_torch.ops.attention import fused_attention, fused_attention_backward
     from stain2stain_tpu_torch.train import train
 
     torch.backends.cuda.matmul.allow_tf32 = False  # torch's defaults for training:
     torch.backends.cudnn.allow_tf32 = True  # f32 matmul, TF32 cuDNN convs (bf16 here anyway)
-    overrides = TRAIN_OVERRIDES + [f"data.data_dir={work / 'data'}"]
+    name = "train-fused" if fused else "train"
+    overrides = TRAIN_OVERRIDES + ([FUSED_OVERRIDE] if fused else []) + [f"data.data_dir={work / 'data'}"]
     cfg = compose(REPO / "configs", "train.yaml", overrides)
-    cfg["runtime"] = {"output_dir": str(work / "out"), "cwd": str(work)}
+    cfg["runtime"] = {"output_dir": str(work / f"out-{name}"), "cwd": str(work)}
     cfg["extras"]["print_config"] = False
-    log("train: " + " ".join(overrides))
+    log(f"{name}: " + " ".join(overrides))
 
     cfg["callbacks"]["step_clock"] = {"_target_": "__main__.step_clock"}
     torch.cuda.reset_peak_memory_stats()
     # ---- the main path: counts zeroed just before, read just after --------
     fused_attention.launches = 0
     fused_attention_backward.launches = 0
+    for kernel in conv.KERNELS:
+        kernel.launches = 0
     t0 = time.perf_counter()
     metrics, objects = train(cfg)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     fwd_launches, bwd_launches = fused_attention.launches, fused_attention_backward.launches
+    k2, k3, k4, k5 = (kernel.launches for kernel in conv.KERNELS)
     # ---- end of the main path -----------------------------------------------
     clock = objects["callbacks"][-1]
     trainer = objects["trainer"]
@@ -489,12 +674,13 @@ def phase_train(card: str, work: Path) -> dict:
         step_ms_median_3_8=step_ms, step_ms=[d * 1e3 for d in durations], tiles_per_s=batch / (step_ms / 1e3),
         peak_mem_gib=peak_gib, wall_s=wall_s, losses=clock.losses, forwards=clock.forwards[0],
         k1_fwd_launches=fwd_launches, k1_bwd_launches=bwd_launches,
+        k2_launches=k2, k3_launches=k3, k4_launches=k4, k5_launches=k5,
         val_loss=metrics.get("val/loss"), test_loss=metrics.get("test/loss"),
         best=Path(ckpt.best_model_path).name if ckpt and ckpt.best_model_path else None,
         n_params=sum(p.numel() for p in objects["model"].net.parameters()),
         dtype=str(objects["model"].net.dtype),
     )
-    log("train " + json.dumps(summary))
+    log(f"{name} " + json.dumps(summary))
     finite = all(math.isfinite(x) for x in clock.losses + [summary["val_loss"] or math.nan, summary["test_loss"] or math.nan])
     if steps != 8 or not finite:
         raise AssertionError(f"training did not run 8 finite steps with finite val/test losses: {summary}")
@@ -504,7 +690,93 @@ def phase_train(card: str, work: Path) -> dict:
         raise AssertionError(f"K1-bwd launches {bwd_launches} != backward passes {steps}")
     if fwd_launches == 0 or fwd_launches != clock.forwards[0]:
         raise AssertionError(f"K1-fwd launches {fwd_launches} != net forward calls {clock.forwards[0]}")
+    want_fwd, want_bwd = (FLAGSHIP_FUSED_CONVS * clock.forwards[0], FLAGSHIP_FUSED_CONVS * steps) if fused else (0, 0)
+    if k2 != want_fwd or (k3, k4, k5) != (want_bwd,) * 3 or (fused and k2 == 0):
+        raise AssertionError(
+            f"K2-K5 launches {(k2, k3, k4, k5)} != ({want_fwd}, {want_bwd}, {want_bwd}, {want_bwd}): "
+            f"{FLAGSHIP_FUSED_CONVS} per net forward and per backward pass with fused_conv, none without"
+        )
+    if fused:
+        # the fused run's weights through the unfused net: the same val loss, since
+        # both paths compute one function (a different loss than the unfused run's
+        # comes from the weights training reached, not from the path)
+        from stain2stain_tpu_torch.config import instantiate
+
+        task = objects["model"]
+        unfused = instantiate(compose(REPO / "configs", "train.yaml", TRAIN_OVERRIDES).model.net, device="cuda")
+        unfused.load_state_dict(task.net.state_dict())
+        unfused.dtype = task.net.dtype
+        fused_net, task.net = task.net, unfused
+        cross = trainer._run_eval(objects["datamodule"].val_dataloader(), "val")["val/loss"]
+        task.net = fused_net
+        summary["val_loss_same_weights_unfused_path"] = cross
+        log(f"{name}-cross-eval " + json.dumps({"val_loss": summary["val_loss"], "unfused_path": cross}))
+        if abs(cross - summary["val_loss"]) > 1e-2 * summary["val_loss"]:
+            raise AssertionError(f"the fused run's weights give another val loss through the unfused net: {cross}")
     return summary
+
+
+def phase_fused_grad_parity() -> dict:
+    """One bf16 train step of the fused flagship, card (K2–K5) vs CPU (plain versions)."""
+    import numpy as np
+    import torch
+
+    from stain2stain_tpu_torch.config import compose, instantiate
+    from stain2stain_tpu_torch.ops import conv
+    from stain2stain_tpu_torch.tasks import ConditionalFlowMatchingModule
+
+    cfg = compose(REPO / "configs", "train.yaml", [FUSED_OVERRIDE, "model.net.dropout=0.1"])
+    torch.manual_seed(0)
+    nets = {dev: instantiate(cfg.model.net, device=dev) for dev in ("cuda", "cpu")}
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():  # jitter every parameter: ADM zero-inits the output convs
+        for p in nets["cpu"].parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    nets["cuda"].load_state_dict(nets["cpu"].state_dict())
+    rng = np.random.default_rng(6)
+    batch = tuple(rng.integers(0, 256, size=(2, 256, 256, 3), dtype=np.uint8) for _ in range(2))
+    t = torch.tensor([0.3, 0.8])
+    out = {}
+    for dev, net in nets.items():
+        net.dtype = torch.bfloat16  # what bf16-mixed sets
+        task = ConditionalFlowMatchingModule(net=net, device=dev)
+        prepared = task.prepare_batch(batch, train=False)
+        before = [kernel.launches for kernel in conv.KERNELS]
+        t0 = time.perf_counter()
+        # a CPU generator on both sides: the same noise and the same dropout seeds
+        loss, _ = task.loss_and_metrics(prepared, torch.Generator().manual_seed(7), train=True, t=t)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        launches = [kernel.launches - b for kernel, b in zip(conv.KERNELS, before)]
+        out[dev] = (loss.item(), {n: p.grad.detach().float().cpu() for n, p in net.named_parameters()},
+                    time.perf_counter() - t0, launches)
+    (loss_gpu, g_gpu, gpu_s, launches), (loss_cpu, g_cpu, cpu_s, _) = out["cuda"], out["cpu"]
+    ref_max = max(g.abs().max().item() for g in g_cpu.values())
+    err = max((g_gpu[n] - g_cpu[n]).abs().max().item() for n in g_cpu)
+    worst = max(g_cpu, key=lambda n: (g_gpu[n] - g_cpu[n]).abs().max().item())
+    row = dict(loss_card=loss_gpu, loss_cpu=loss_cpu, max_abs_grad_err=err, worst_param=worst,
+               ref_max_abs_grad=ref_max, tol=FUSED_GRAD_REL_TOL * ref_max, card_step_s=gpu_s, cpu_step_s=cpu_s,
+               k2_k5_launches=launches)
+    # the same weights through the unfused net on the card, eval mode: one function
+    unfused = instantiate(compose(REPO / "configs", "train.yaml", ["model.net.dropout=0.1"]).model.net, device="cuda")
+    unfused.load_state_dict(nets["cuda"].state_dict())
+    unfused.dtype = torch.bfloat16
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 256, 256, 3)).astype(np.float32)).cuda()
+    with torch.no_grad():
+        fused_out = nets["cuda"].eval()(t.cuda(), x).float()
+        unfused_out = unfused.eval()(t.cuda(), x).float()
+    row["eval_fused_vs_unfused_max_abs"] = (fused_out - unfused_out).abs().max().item()
+    row["eval_unfused_max_abs"] = unfused_out.abs().max().item()
+    row["eval_tol"] = FUSED_EVAL_REL_TOL * row["eval_unfused_max_abs"]
+    row["ok"] = (err <= row["tol"] and abs(loss_gpu - loss_cpu) <= 1e-2 * abs(loss_cpu)
+                 and launches == [FLAGSHIP_FUSED_CONVS] * 4
+                 and row["eval_fused_vs_unfused_max_abs"] <= row["eval_tol"]
+                 and all(torch.isfinite(g).all() for g in g_gpu.values()))
+    log("fused-grad-parity " + json.dumps(row))
+    if not row["ok"]:
+        raise AssertionError(f"fused bf16 flagship on the card disagrees with the CPU or the unfused net: {row}")
+    return row
 
 
 def phase_grad_parity() -> dict:
@@ -631,6 +903,8 @@ def phase_profile(net, card: str) -> dict:
 
 def _train_kernel_category(name: str) -> str:
     """A device kernel's layer, from its name."""
+    if any(s in name for s in ("conv3x3_fwd_kernel", "prologue_grad", "conv3x3_wgrad_kernel", "wgrad_reduce")):
+        return "fused conv K2-K5"
     if "attention_" in name:
         return "attention kernels K1-fwd/K1-bwd"
     if "nchwToNhwc" in name or "nhwcToNchw" in name:
@@ -646,13 +920,14 @@ def _train_kernel_category(name: str) -> str:
     return "other elementwise"
 
 
-def phase_profile_train(card: str) -> dict:
+def phase_profile_train(card: str, fused: bool = False) -> dict:
     """Where the time of one train step goes (``--profile`` only).
 
-    The flagship task at batch 32, 256 px, bf16-mixed, through the trainer's
-    own step (augmentation, loss, backward, Adam), under ``torch.profiler``
-    for three steps after two warm-up steps: device time by kernel, the
-    device's busy share of the wall time, and the attention kernels' share.
+    The flagship task at batch 32, 256 px, bf16-mixed (with ``fused``:
+    ``+model.net.fused_conv=true``), through the trainer's own step
+    (augmentation, loss, backward, Adam), under ``torch.profiler`` for three
+    steps after two warm-up steps: device time by kernel, the device's busy
+    share of the wall time, and each kernel category's share.
     """
     import numpy as np
     import torch
@@ -664,7 +939,9 @@ def phase_profile_train(card: str) -> dict:
 
     torch.backends.cudnn.allow_tf32 = True  # torch's defaults for training
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = compose(REPO / "configs", "train.yaml", ["experiment=quality_synthetic_256", "trainer.accelerator=gpu"])
+    overrides = ["experiment=quality_synthetic_256", "trainer.accelerator=gpu"] + ([FUSED_OVERRIDE] if fused else [])
+    cfg = compose(REPO / "configs", "train.yaml", overrides)
+    name = "profile-train-fused" if fused else "profile-train"
     torch.manual_seed(0)
     task = instantiate(cfg.model, net=instantiate(cfg.model.net, device="cuda"), device="cuda")
     trainer = Trainer(accelerator="gpu", precision="bf16-mixed", logger=False)
@@ -691,7 +968,7 @@ def phase_profile_train(card: str) -> dict:
     rows = [dict(kernel=e.key[:90], device_ms=_device_us(e) / 1e3 / steps, calls=e.count / steps,
                  share=_device_us(e) / busy_us) for e in top]
     for r in rows:
-        log("profile-train-kernel " + json.dumps(r))
+        log(f"{name}-kernel " + json.dumps(r))
     shares: dict[str, float] = {}
     for e in kernels:
         category = _train_kernel_category(e.key)
@@ -699,8 +976,11 @@ def phase_profile_train(card: str) -> dict:
     result = dict(card=card, steps=steps, per_step_wall_ms=wall_us / 1e3 / steps,
                   per_step_device_busy_ms=busy_us / 1e3 / steps,
                   device_idle_share=max(0.0, 1.0 - busy_us / wall_us),
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                   shares_of_busy_time=dict(sorted(shares.items(), key=lambda kv: -kv[1])))
-    log("profile-train " + json.dumps(result))
+    log(f"{name} " + json.dumps(result))
+    del task, trainer, batch, prof
+    torch.cuda.empty_cache()
     return result
 
 
@@ -764,15 +1044,30 @@ def main() -> int:
     (REPO / "scratch").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_", dir=REPO / "scratch") as work:
         train_summary = phase_train(card, Path(work))
+        torch.cuda.empty_cache()
+
+        # 8. f32 gradients, card vs CPU
+        grad = phase_grad_parity()
+        if args.profile:
+            torch.cuda.empty_cache()
+            phase_profile_train(card)
+
+        # 9. K2-K5 against their plain versions
+        torch.cuda.empty_cache()
+        convs = phase_conv_kernels(exp_per_s)
+
+        # 10. the training path with fused_conv=true, on the same synthetic data
+        torch.cuda.empty_cache()
+        fused_summary = phase_train(card, Path(work), fused=True)
     torch.cuda.empty_cache()
 
-    # 8. f32 gradients, card vs CPU
-    grad = phase_grad_parity()
+    # 11. the fused path's bf16 gradients, card vs CPU
+    fused_grad = phase_fused_grad_parity()
     if args.profile:
         torch.cuda.empty_cache()
-        phase_profile_train(card)
+        phase_profile_train(card, fused=True)
 
-    # 9. result lines
+    # 12. result lines
     def row(name, source, replaces, case, launches, by_path, passed):
         return {
             "name": name,
@@ -787,21 +1082,36 @@ def main() -> int:
             "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"],
             "library_ms": case["library_ms"],
-            "shape": [case["bh"], case["t"], case["d"]],
+            "shape": case["shape"],
             "dtype": case["dtype"],
             "passed": passed,
         }
 
-    # each kernel's first case is the shape and dtype its main path runs
+    # each kernel's first case is the shape and dtype its main path runs most
+    # (for K2-K5 the first-level shape, whose pixels dominate the step)
+    conv_ok = all(m["ok"] for m in convs["masks"]) and fused_grad["ok"]
+    conv_sources = {  # kernel: (row name, source, TPU kernel, launch key of the fused train phase)
+        "K2": ("fused_conv3x3 (K2)", "conv3x3_fwd.cu", "stain2stain_tpu/ops/pallas_conv.py:164", "k2_launches"),
+        "K3": ("conv3x3_input_grad (K3)", "conv3x3_fwd.cu", "stain2stain_tpu/ops/pallas_conv.py:307",
+               "k3_launches"),
+        "K4": ("prologue_grad (K4)", "prologue_grad.cu", "stain2stain_tpu/ops/pallas_conv.py:319", "k4_launches"),
+        "K5": ("conv3x3_weight_grad (K5)", "conv3x3_wgrad.cu", "stain2stain_tpu/ops/pallas_conv.py:417",
+               "k5_launches"),
+    }
     kernels = [
         row("attention_fwd (K1-fwd)", "stain2stain_tpu_torch/csrc/attention_fwd.cu",
             "stain2stain_tpu/ops/pallas_attention.py:64", k1["cases"][0], summary["k1_launches"],
-            {"serve": summary["k1_launches"], "train": train_summary["k1_fwd_launches"]},
+            {"serve": summary["k1_launches"], "train": train_summary["k1_fwd_launches"],
+             "train_fused": fused_summary["k1_fwd_launches"]},
             all(c["ok"] for c in k1["cases"]) and parity["ok"]),
         row("attention_bwd (K1-bwd)", "stain2stain_tpu_torch/csrc/attention_bwd.cu",
             "stain2stain_tpu/ops/pallas_attention.py:78", k1_bwd["cases"][0], train_summary["k1_bwd_launches"],
-            {"train": train_summary["k1_bwd_launches"]},
+            {"train": train_summary["k1_bwd_launches"], "train_fused": fused_summary["k1_bwd_launches"]},
             all(c["ok"] for c in k1_bwd["cases"]) and grad["ok"]),
+    ] + [
+        row(title, f"stain2stain_tpu_torch/csrc/{source}", replaces, convs["rows"][k][0], fused_summary[key],
+            {"train_fused": fused_summary[key]}, all(c["ok"] for c in convs["rows"][k]) and conv_ok)
+        for k, (title, source, replaces, key) in conv_sources.items()
     ]
     log(f"total: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))

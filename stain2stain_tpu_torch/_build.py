@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source compiles on first use into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds). The
 libraries go to ``csrc/build/`` (listed in ``.gitignore``, or
-``$S2S_TORCH_BUILD_DIR``) under a name that carries a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one is reused.
+``$S2S_TORCH_BUILD_DIR``) under a name that carries a hash of the source, of
+every shared header ``csrc/*.cuh`` and of the flags, so an edited source or
+header rebuilds and an unchanged one is reused.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -22,7 +23,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("attention_fwd.cu", "attention_bwd.cu")
+SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "conv3x3_fwd.cu", "prologue_grad.cu", "conv3x3_wgrad.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -54,6 +55,9 @@ def _nvcc() -> str:
 
 def _lib_path(source: str) -> Path:
     digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # any source may include any header
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 

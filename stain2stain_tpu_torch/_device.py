@@ -24,4 +24,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device", "DeviceLike"]
+def runs_plain(name: str, *tensors: torch.Tensor) -> bool:
+    """Whether a kernel wrapper takes its plain version: True when every tensor
+    lies on the CPU, False when all lie on CUDA devices (launch the kernel);
+    raises for any other device or a mix."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return True
+    if any(t.device.type != "cuda" for t in tensors):
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, got {[str(t.device) for t in tensors]}")
+    return False
+
+
+__all__ = ["resolve_device", "runs_plain", "DeviceLike"]

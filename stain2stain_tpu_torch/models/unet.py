@@ -27,8 +27,18 @@ legacy qkv row order (``[h0·(q,k,v), h1·(q,k,v), …]``), so reference
 Lightning checkpoints load directly once their ``net.`` prefix is stripped
 (:func:`stain2stain_tpu_torch.compat.load_reference_checkpoint`).
 
-Not in this slice: ``fused_conv`` and ``s2b_conv`` (opt-in conv paths) and
-``use_checkpoint`` (training rematerialization) raise ``NotImplementedError``.
+``fused_conv=True`` runs each ResBlock that meets the gate of JAX
+``unet.py:148-165`` (bf16 compute, no up/down, ``use_scale_shift_norm``, both
+convs :func:`..ops.conv.supported`) through :func:`..ops.conv.norm_act_conv`:
+GroupNorm → (FiLM) → SiLU → dropout → 3×3 conv as kernel K2 forward and
+K3–K5 backward on the card, their plain versions on the CPU. The gate is read
+at each call, since the trainer sets ``dtype`` after construction. The block
+permutes to NHWC at its boundary and returns an NCHW view of NHWC memory, so
+consecutive fused blocks pass NHWC memory without a transpose. State-dict
+keys do not change.
+
+Not in this slice: ``s2b_conv`` (an opt-in conv path) and ``use_checkpoint``
+(training rematerialization) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,8 +50,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import DeviceLike, resolve_device
+from ..ops import conv as conv_ops
 from ..ops.attention import attention
-from ..ops.dropout import FastDropout
+from ..ops.dropout import FastDropout, draw_seed
 from ..ops.norms import group_norm, group_norm_film_silu, group_norm_silu
 from ..ops.time_embedding import timestep_embedding_adm
 
@@ -110,10 +121,13 @@ class ResBlock(nn.Module):
         use_scale_shift_norm: bool = True,
         up: bool = False,
         down: bool = False,
+        fused_conv: bool = False,
     ):
         super().__init__()
         self.use_scale_shift_norm = use_scale_shift_norm
         self.up, self.down = up, down
+        self.fused_conv = bool(fused_conv)
+        self.out_channels = out_channels
         self.in_layers = nn.Sequential(
             _norm(channels), nn.SiLU(), nn.Conv2d(channels, out_channels, 3, padding=1)
         )
@@ -133,10 +147,46 @@ class ResBlock(nn.Module):
             nn.Conv2d(channels, out_channels, 1) if channels != out_channels else nn.Identity()
         )
 
+    def fused_enabled(self, x: torch.Tensor, dtype: torch.dtype) -> bool:
+        """The gate of JAX ``ResBlock._fused_enabled`` (``unet.py:148-165``)
+        without its backend test, for NCHW ``x``."""
+        if not self.fused_conv or self.up or self.down or not self.use_scale_shift_norm:
+            return False
+        if dtype != torch.bfloat16 or self.out_layers[2].rate >= 1.0:
+            return False
+        b, c, h, w = x.shape
+        d = self.out_channels
+        return conv_ops.supported((b, h, w, c), (3, 3, c, d)) and conv_ops.supported((b, h, w, d), (3, 3, d, d))
+
+    def _fused_forward(self, x, emb, dtype, generator) -> torch.Tensor:
+        """JAX ``ResBlock._fused_call`` (``unet.py:236-269``) on NCHW ``x``."""
+        norm_in, conv_in = self.in_layers[0], self.in_layers[2]
+        norm_out, dropout, conv_out = self.out_layers[0], self.out_layers[2], self.out_layers[3]
+        h = conv_ops.norm_act_conv(
+            x.permute(0, 2, 3, 1), conv_in.weight.permute(2, 3, 1, 0), conv_in.bias,
+            norm_in.weight, norm_in.bias, groups=norm_in.num_groups, act="silu",
+        )
+        emb_out = _conv(self.emb_layers[1], F.silu(emb.to(dtype)), dtype)
+        film_scale, film_shift = torch.chunk(emb_out.to(torch.float32), 2, dim=1)
+        # the seed is drawn where the unfused FastDropout draws it, so one
+        # generator gives both paths the same mask
+        rate = dropout.rate if self.training else 0.0
+        seed = draw_seed(generator) if rate > 0.0 else None
+        h = conv_ops.norm_act_conv(
+            h, conv_out.weight.permute(2, 3, 1, 0), conv_out.bias, norm_out.weight, norm_out.bias,
+            film_scale=film_scale, film_shift=film_shift, groups=norm_out.num_groups, act="silu",
+            dropout_rate=rate, seed=seed,
+        )
+        if isinstance(self.skip_connection, nn.Conv2d):
+            x = _conv(self.skip_connection, x, dtype)
+        return (h.permute(0, 3, 1, 2) + x).to(dtype)
+
     def forward(
         self, x: torch.Tensor, emb: torch.Tensor, dtype: torch.dtype,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
+        if self.fused_enabled(x, dtype):
+            return self._fused_forward(x, emb, dtype, generator)
         norm_in = self.in_layers[0]
         h = group_norm_silu(x, norm_in.weight, norm_in.bias, norm_in.num_groups).to(dtype)
         if self.up:
@@ -245,8 +295,6 @@ class UNetModel(nn.Module):
         device: DeviceLike = None,
     ):
         super().__init__()
-        if fused_conv:
-            raise NotImplementedError("fused_conv=True (kernels K2-K5) is not ported yet")
         if s2b_conv:
             raise NotImplementedError("s2b_conv is not ported yet")
         if use_checkpoint:
@@ -279,7 +327,7 @@ class UNetModel(nn.Module):
                 return max(ch // num_head_channels, 1)
             return num_heads
 
-        res_kw = dict(dropout=dropout, use_scale_shift_norm=use_scale_shift_norm)
+        res_kw = dict(dropout=dropout, use_scale_shift_norm=use_scale_shift_norm, fused_conv=bool(fused_conv))
         self.time_embed = nn.Sequential(nn.Linear(mc, time_dim), nn.SiLU(), nn.Linear(time_dim, time_dim))
         if class_cond:
             self.label_emb = nn.Embedding(num_classes, time_dim)

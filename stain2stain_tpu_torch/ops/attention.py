@@ -28,6 +28,7 @@ import math
 import torch
 
 from .. import _build
+from .._device import runs_plain
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -97,17 +98,9 @@ def _check(*tensors) -> None:
         raise ValueError(f"fused_attention grid too large for BH={bh}, T={t}")
 
 
-def _on_cpu(*tensors) -> bool:
-    if all(t.device.type == "cpu" for t in tensors):
-        return True
-    if tensors[0].device.type != "cuda":
-        raise ValueError(f"fused_attention runs on CUDA or CPU tensors, got {tensors[0].device}")
-    return False
-
-
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     """(BH, T, d) q/k/v → (BH, T, d) softmax(q·kᵀ·scale)·v in q's dtype (K1-fwd)."""
-    if _on_cpu(q, k, v):
+    if runs_plain("fused_attention", q, k, v):
         return fused_attention_reference(q, k, v, scale)
     _check(q, k, v)
     bh, t, d = q.shape
@@ -130,7 +123,7 @@ fused_attention.launches = 0
 
 def fused_attention_backward(q, k, v, o, do, scale: float):
     """(BH, T, d) q, k, v, o, do → (dq, dk, dv) in the inputs' dtype (K1-bwd)."""
-    if _on_cpu(q, k, v, o, do):
+    if runs_plain("fused_attention_backward", q, k, v, o, do):
         return fused_attention_backward_reference(q, k, v, o, do, scale)
     _check(q, k, v, o, do)
     bh, t, d = q.shape

@@ -277,6 +277,7 @@ def test_port_imports_nothing_of_jax():
         "import stain2stain_tpu_torch.data.synthetic_module, stain2stain_tpu_torch.data.device_cache\n"
         "import stain2stain_tpu_torch.data.native, stain2stain_tpu_torch.utils.utils\n"
         "import stain2stain_tpu_torch.ops.cfm, stain2stain_tpu_torch.ops.dropout, stain2stain_tpu_torch.ops.losses\n"
+        "import stain2stain_tpu_torch.ops.conv\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax', 'stain2stain_tpu')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'flax.', 'optax.', 'stain2stain_tpu.')))\n"
         "assert 'stain2stain_tpu_torch.serve' in sys.modules and 'stain2stain_tpu_torch.train' in sys.modules\n"

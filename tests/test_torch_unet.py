@@ -169,9 +169,7 @@ def test_load_reference_checkpoint(tmp_path):
     assert "mid" in params
 
 
-@pytest.mark.parametrize(
-    "knob", [dict(fused_conv=True), dict(s2b_conv=2), dict(use_checkpoint="block"), dict(fused_attention=False)]
-)
+@pytest.mark.parametrize("knob", [dict(s2b_conv=2), dict(use_checkpoint="block"), dict(fused_attention=False)])
 def test_unported_knobs_raise(knob):
     with pytest.raises(NotImplementedError):
         UNetModel(dim=(3, 16, 16), device="cpu", **TINY, **knob)
@@ -186,3 +184,124 @@ def test_resblock_updown_and_pool_resample_match_jax():
         with torch.no_grad():
             got = tnet(torch.from_numpy(t), torch.from_numpy(x)).numpy()
         np.testing.assert_allclose(got, ref, atol=TOL, rtol=TOL)
+
+
+# ---- fused_conv=True: ResBlocks through ops/conv.norm_act_conv (K2–K5 on the card)
+
+FUSED_TINY = dict(
+    num_channels=128,
+    num_res_blocks=1,
+    channel_mult=(1, 2),
+    attention_resolutions="16",
+    num_head_channels=32,
+    resblock_updown=True,  # the down and up ResBlocks are gated off the fused path
+)
+
+
+def _jittered(net: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
+    """Every parameter jittered: ADM zero-inits the output convs, which would
+    make a faulty second conv invisible."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    return net
+
+
+def _count_fused(monkeypatch) -> list:
+    from stain2stain_tpu_torch.ops import conv as conv_ops
+
+    calls = [0]
+    real = conv_ops.norm_act_conv
+
+    def counting(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(conv_ops, "norm_act_conv", counting)
+    return calls
+
+
+def test_fused_conv_keeps_the_state_dict_keys():
+    plain = UNetModel(dim=(3, 32, 32), device="cpu", **FUSED_TINY)
+    fused = UNetModel(dim=(3, 32, 32), device="cpu", fused_conv=True, **FUSED_TINY)
+    assert list(plain.state_dict()) == list(fused.state_dict())
+    assert all(plain.state_dict()[k].shape == v.shape for k, v in fused.state_dict().items())
+    fused.load_state_dict(plain.state_dict(), strict=True)
+
+
+def test_fused_conv_unet_matches_unfused(monkeypatch):
+    """bf16 forward of the fused net against the unfused port net with the
+    same weights. 8 of the 10 ResBlocks pass the gate (the down and up blocks
+    do not), so ``norm_act_conv`` runs 16 times. Tolerance: both nets round
+    to bf16 at every layer but at other points (the fused conv adds its bias
+    in f32 before rounding), so they differ by a few bf16 ulps (2^-8 relative)
+    compounded over about 20 layers: 3e-2 × max|out| + 1e-2."""
+    plain = _jittered(UNetModel(dim=(3, 32, 32), device="cpu", dtype="bfloat16", **FUSED_TINY)).eval()
+    fused = UNetModel(dim=(3, 32, 32), device="cpu", dtype="bfloat16", fused_conv=True, **FUSED_TINY).eval()
+    fused.load_state_dict(plain.state_dict())
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 32, 32, 3)).astype(np.float32))
+    t = torch.tensor([0.2, 0.7])
+    calls = _count_fused(monkeypatch)
+    with torch.no_grad():
+        got = fused(t, x)
+        assert calls[0] == 16
+        want = plain(t, x)
+    assert calls[0] == 16 and got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= 3e-2 * want.abs().max().item() + 1e-2, err
+
+
+def test_fused_conv_gate():
+    from stain2stain_tpu_torch.models.unet import ResBlock
+
+    block = ResBlock(128, 512, 128, dropout=0.1, fused_conv=True)
+    x = torch.zeros(2, 128, 16, 16)
+    assert block.fused_enabled(x, torch.bfloat16)
+    assert not block.fused_enabled(x, torch.float32)  # bf16 compute only
+    assert not block.fused_enabled(torch.zeros(2, 128, 16, 8), torch.bfloat16)  # W % 16
+    assert not block.fused_enabled(torch.zeros(2, 96, 16, 16), torch.bfloat16)  # C % 128
+    assert not ResBlock(128, 512, 64, fused_conv=True).fused_enabled(x, torch.bfloat16)  # D % 128
+    assert not ResBlock(128, 512, 128, down=True, fused_conv=True).fused_enabled(x, torch.bfloat16)
+    assert not ResBlock(128, 512, 128, use_scale_shift_norm=False, fused_conv=True).fused_enabled(
+        x, torch.bfloat16
+    )
+    assert not ResBlock(128, 512, 128).fused_enabled(x, torch.bfloat16)
+
+
+@pytest.mark.parametrize("in_ch", [128, 256], ids=["identity_skip", "conv_skip"])
+def test_fused_resblock_drops_the_units_the_unfused_one_drops(in_ch):
+    """Dropout 0.3 in training mode, one generator seed for both blocks: the
+    fused block's hash mask (K2, K4, K5) and the unfused ``FastDropout`` mask
+    are the same function of the NHWC element index and seed, so outputs and
+    every gradient agree within bf16 rounding. Were other units dropped, the
+    outputs would differ by O(1). Tolerance: 3e-2 × max|ref| (the unfused
+    path rounds n to bf16 before the mask and scales by bf16(1/0.7), the fused
+    one after it, in f32)."""
+    from stain2stain_tpu_torch.models.unet import ResBlock
+
+    torch.manual_seed(0)
+    blocks = {f: ResBlock(in_ch, 512, 128, dropout=0.3, fused_conv=f).train() for f in (False, True)}
+    _jittered(blocks[False], seed=1)
+    blocks[True].load_state_dict(blocks[False].state_dict())
+    rng = np.random.default_rng(4)
+    x0 = torch.from_numpy(rng.standard_normal((2, in_ch, 16, 16)).astype(np.float32)).to(torch.bfloat16)
+    emb = torch.from_numpy(rng.standard_normal((2, 512)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((2, 128, 16, 16)).astype(np.float32)).to(torch.bfloat16)
+    out, grads = {}, {}
+    for fused, block in blocks.items():
+        assert block.fused_enabled(x0, torch.bfloat16) == fused
+        x = x0.clone().requires_grad_()
+        y = block(x, emb, torch.bfloat16, torch.Generator().manual_seed(9))
+        y.backward(dy)
+        out[fused] = y.detach().float()
+        grads[fused] = {"x": x.grad.float(), **{n: p.grad.float() for n, p in block.named_parameters()}}
+    ref = out[False]
+    assert (out[True] - ref).abs().max() <= 3e-2 * ref.abs().max()
+    assert set(grads[True]) == set(grads[False])
+    for name, g in grads[False].items():
+        assert (grads[True][name] - g).abs().max() <= 3e-2 * g.abs().max() + 1e-6, name
+    # another seed drops other units: the outputs move by far more than rounding
+    other = blocks[True](x0, emb, torch.bfloat16, torch.Generator().manual_seed(10)).float()
+    assert (other - ref).abs().max() > 0.2 * ref.abs().max()
