@@ -8,16 +8,20 @@ Phases (any failure ends the script with a non-zero exit and no result line):
 1. Device: the card's name and power limit, the torch and CUDA versions.
 2. Build: every CUDA kernel of the port from ``stain2stain_tpu_torch/csrc``
    with ``nvcc`` (one process per source, all at once), with ptxas' report.
+   ptxas must report no spills for the bf16 (tensor-core) attention kernels.
 3. K1-fwd (``csrc/attention_fwd.cu``) against its plain PyTorch version on
-   the card at the serving shapes, with the stated tolerances; times of the
-   kernel, the plain version and ``scaled_dot_product_attention`` (a
-   yardstick only, never used by the port) beside the bound computed from
-   the shape.
+   the card, output and row log-sum-exp, with the stated tolerances: the
+   serving shapes (f32 and bf16), the training shape (bf16, with the lse that
+   training saves), d 16 and d 64, T 4096, ragged T, peaked logits (q × 8);
+   times of the kernel, the plain version and
+   ``scaled_dot_product_attention`` (a yardstick only, never used by the
+   port) beside the bound computed from the shape.
 4. K1-bwd (``csrc/attention_bwd.cu``) against its plain version (the
    explicit backward, itself checked against torch autograd through the
-   plain forward) at the training shapes; times of the kernel, the plain
-   version and the backward of ``scaled_dot_product_attention`` (yardstick
-   only) beside the bound.
+   plain forward) at the same kinds of shapes, through both routes: the lse
+   from K1-fwd given (training's route) and recomputed; each run twice, equal
+   bit for bit; times of both routes, the plain version and the backward of
+   ``scaled_dot_product_attention`` (yardstick only) beside the bound.
 5. The serving path at full width: ``configs/`` composed through the port's
    config code, the flagship UNet (``model=conditional_flow_matching``, about
    71 M parameters) from a fixed seed with every parameter jittered (ADM
@@ -90,6 +94,9 @@ PEAK_BYTES_PER_S = 3.35e12
 MUFU_EX2_PER_CLK_PER_SM = 16
 
 TOL = {"float32": 5e-5, "bfloat16": 8e-3}  # max abs error vs the plain version
+# K1-fwd's row log-sum-exp (f32 either way; the logits differ only in
+# summation order), max abs error vs the plain version's
+LSE_TOL = 1e-4
 UNET_REL_TOL = 2e-4  # f32 card vs CPU, TF32 off: summation order only
 # K1-bwd: max abs error over dq, dk, dv as a multiple of max|ref|. f32: the
 # sums over T keys and queries run in another order (measured ~2e-6); bf16:
@@ -146,9 +153,10 @@ def cuda_ms(fn, repeats: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def attention_bound(bh: int, t: int, d: int, dtype: str, exp_per_s: float) -> dict:
+def attention_bound(bh: int, t: int, d: int, dtype: str, exp_per_s: float, lse: bool = False) -> dict:
     elem = 2 if dtype == "bfloat16" else 4
-    bytes_ms = 4 * bh * t * d * elem / PEAK_BYTES_PER_S * 1e3  # q, k, v read, o written
+    # q, k, v read, o (and the f32 lse) written
+    bytes_ms = (4 * bh * t * d * elem + 4 * bh * t * lse) / PEAK_BYTES_PER_S * 1e3
     flop_ms = 4 * bh * t * t * d / PEAK_FLOPS[dtype] * 1e3  # q·kᵀ and p·v
     exp_ms = bh * t * t / exp_per_s * 1e3  # one exponential per logit
     ops_ms = max(flop_ms, exp_ms)
@@ -161,6 +169,23 @@ def attention_bound(bh: int, t: int, d: int, dtype: str, exp_per_s: float) -> di
     }
 
 
+def tensor_core_attention_spills(build_logs: dict) -> dict:
+    """Spill-store bytes of every bf16 (tensor-core) kernel of K1-fwd and K1-bwd,
+    by mangled name, from ptxas' report (``-Xptxas -v``)."""
+    import re
+
+    spills, name = {}, None
+    for src in ("attention_fwd.cu", "attention_bwd.cu"):
+        for line in build_logs.get(src, "").splitlines():
+            found = re.search(r"entry function '(\S+)'", line)
+            if found:
+                name = found.group(1)
+            found = re.search(r"(\d+) bytes spill stores", line)
+            if found and name and ("mma_kernel" in name or ("prep" in name and "bfloat16" in name)):
+                spills[name] = int(found.group(1))
+    return spills
+
+
 def phase_kernels(exp_per_s: float) -> dict:
     import torch
     import torch.nn.functional as F
@@ -171,35 +196,46 @@ def phase_kernels(exp_per_s: float) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     log("K1: TF32 off for matmul and cuDNN (the plain f32 version runs in full f32)")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # (BH, T, d, dtype, q scale, lse as its caller asks, what). Peaked logits
+    # (q x 8) make the online softmax rescale; their v is scaled by 1/8 so the
+    # near one-hot outputs keep the unit range the absolute bf16 TOL is set for
+    # (one bf16 ulp of a value in [2, 4) is 0.016).
     cases = [
-        (256, 1024, 32, "float32", "256-px serving shape, f32 (the config's dtype: the main path)"),
-        (256, 1024, 32, "bfloat16", "256-px serving shape, bf16"),
-        (64, 4096, 32, "bfloat16", "512-px mid block, bf16"),
-        (16, 1000, 32, "float32", "ragged T, f32"),
-        (16, 1000, 32, "bfloat16", "ragged T, bf16"),
+        (256, 1024, 32, "float32", 1.0, False, "256-px serving shape, f32 (the config's dtype: the main path)"),
+        (256, 1024, 32, "bfloat16", 1.0, False, "256-px serving shape, bf16"),
+        (512, 1024, 32, "bfloat16", 1.0, True, "256-px training shape (batch 32), bf16, lse saved: training's call"),
+        (256, 1024, 16, "bfloat16", 1.0, False, "d 16, bf16"),
+        (128, 1024, 64, "bfloat16", 1.0, False, "d 64, bf16"),
+        (64, 4096, 32, "bfloat16", 1.0, False, "512-px mid block, bf16"),
+        (64, 1024, 32, "bfloat16", 8.0, True, "peaked logits (q x 8), bf16"),
+        (16, 1000, 32, "float32", 1.0, False, "ragged T, f32"),
+        (16, 1000, 32, "bfloat16", 1.0, False, "ragged T, bf16"),
     ]
     results = []
-    for bh, t, d, dtype, what in cases:
+    for bh, t, d, dtype, peak, with_lse, what in cases:
         dt = getattr(torch, dtype)
-        q, k, v = (torch.randn(bh, t, d, device="cuda", generator=gen).to(dt) for _ in range(3))
+        q, k, v = (torch.randn(bh, t, d, device="cuda", generator=gen) for _ in range(3))
+        q, k, v = (q * peak).to(dt), k.to(dt), (v / peak).to(dt)
         scale = 1.0 / math.sqrt(d)
-        out = fused_attention(q, k, v, scale)
+        out, lse = fused_attention(q, k, v, scale, return_lse=True)
         torch.cuda.synchronize()
-        ref = fused_attention_reference(q, k, v, scale)
+        ref, ref_lse = fused_attention_reference(q, k, v, scale, return_lse=True)
         err = (out.float() - ref.float()).abs().max().item()
-        ok = bool(torch.isfinite(out).all()) and err <= TOL[dtype]
-        ms = cuda_ms(lambda: fused_attention(q, k, v, scale), repeats=20)
-        plain_ms = cuda_ms(lambda: fused_attention_reference(q, k, v, scale), repeats=5)
+        lse_err = (lse - ref_lse).abs().max().item()
+        ok = bool(torch.isfinite(out).all()) and err <= TOL[dtype] and lse_err <= LSE_TOL
+        ms = cuda_ms(lambda: fused_attention(q, k, v, scale, return_lse=with_lse), repeats=20)
+        plain_ms = cuda_ms(lambda: fused_attention_reference(q, k, v, scale, return_lse=with_lse), repeats=5)
         # (1, BH, T, d): the 4-D layout SDPA's fused backends take
         library_ms = cuda_ms(
             lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], scale=scale), repeats=20
         )
-        row = dict(bh=bh, t=t, d=d, shape=[bh, t, d], dtype=dtype, what=what, max_abs_err=err, tol=TOL[dtype],
+        row = dict(bh=bh, t=t, d=d, shape=[bh, t, d], dtype=dtype, q_scale=peak, lse=with_lse, what=what,
+                   max_abs_err=err, tol=TOL[dtype], lse_max_abs_err=lse_err, lse_tol=LSE_TOL,
                    ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   **attention_bound(bh, t, d, dtype, exp_per_s))
+                   **attention_bound(bh, t, d, dtype, exp_per_s, with_lse))
         log("K1 " + json.dumps(row))
         results.append(row)
-        del q, k, v, out, ref
+        del q, k, v, out, lse, ref, ref_lse
         torch.cuda.empty_cache()
     bad = [r for r in results if not r["ok"]]
     if bad:
@@ -209,7 +245,8 @@ def phase_kernels(exp_per_s: float) -> dict:
 
 def attention_bwd_bound(bh: int, t: int, d: int, dtype: str, exp_per_s: float) -> dict:
     elem = 2 if dtype == "bfloat16" else 4
-    bytes_ms = 8 * bh * t * d * elem / PEAK_BYTES_PER_S * 1e3  # q, k, v, o, do read; dq, dk, dv written
+    # q, k, v, o, do read, the f32 lse read; dq, dk, dv written
+    bytes_ms = (8 * bh * t * d * elem + 4 * bh * t) / PEAK_BYTES_PER_S * 1e3
     flop_ms = 10 * bh * t * t * d / PEAK_FLOPS[dtype] * 1e3  # s, dv, dp, dq, dk products
     exp_ms = bh * t * t / exp_per_s * 1e3  # one exponential per p
     ops_ms = max(flop_ms, exp_ms)
@@ -219,6 +256,9 @@ def attention_bwd_bound(bh: int, t: int, d: int, dtype: str, exp_per_s: float) -
         "bytes_ms": bytes_ms,
         "flop_ms": flop_ms,
         "exp_ms": exp_ms,
+        # the kernel's own design (no atomics): s and dp computed in both the
+        # dk/dv and the dq pass, so seven products and two exponentials per p
+        "design_bound_ms": max(bytes_ms, 1.4 * flop_ms, 2 * exp_ms),
     }
 
 
@@ -227,6 +267,7 @@ def phase_k1_bwd(exp_per_s: float) -> dict:
     import torch.nn.functional as F
 
     from stain2stain_tpu_torch.ops.attention import (
+        fused_attention,
         fused_attention_backward,
         fused_attention_backward_reference,
         fused_attention_reference,
@@ -236,46 +277,57 @@ def phase_k1_bwd(exp_per_s: float) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     log("K1-bwd: TF32 off for matmul and cuDNN (the plain f32 version runs in full f32)")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = [
-        (512, 1024, 32, "bfloat16", "256-px training shape (batch 32, 16 heads), bf16: the main path"),
-        (512, 1024, 32, "float32", "256-px training shape, f32"),
-        (64, 4096, 32, "bfloat16", "512-px mid block at batch 4, bf16"),
-        (16, 1000, 32, "float32", "ragged T, f32"),
-        (16, 1000, 32, "bfloat16", "ragged T, bf16"),
+    cases = [  # (BH, T, d, dtype, q scale, what)
+        (512, 1024, 32, "bfloat16", 1.0, "256-px training shape (batch 32, 16 heads), bf16: the main path"),
+        (512, 1024, 32, "float32", 1.0, "256-px training shape, f32"),
+        (64, 4096, 32, "bfloat16", 1.0, "512-px mid block at batch 4, bf16"),
+        (256, 1024, 16, "bfloat16", 1.0, "d 16, bf16"),
+        (128, 1024, 64, "bfloat16", 1.0, "d 64, bf16"),
+        (64, 1024, 32, "bfloat16", 8.0, "peaked logits (q x 8), bf16"),
+        (16, 1000, 32, "float32", 1.0, "ragged T, f32"),
+        (16, 1000, 32, "bfloat16", 1.0, "ragged T, bf16"),
     ]
     results = []
-    for bh, t, d, dtype, what in cases:
+    for bh, t, d, dtype, peak, what in cases:
         dt = getattr(torch, dtype)
-        q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=gen).to(dt) for _ in range(4))
+        q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=gen) for _ in range(4))
+        q, k, v, do = (q * peak).to(dt), k.to(dt), v.to(dt), do.to(dt)
         scale = 1.0 / math.sqrt(d)
-        o = fused_attention_reference(q, k, v, scale)
-        got = fused_attention_backward(q, k, v, o, do, scale)
+        o, lse = fused_attention(q, k, v, scale, return_lse=True)  # as FusedAttention saves them
+        got = fused_attention_backward(q, k, v, o, do, scale, lse)
+        again = fused_attention_backward(q, k, v, o, do, scale, lse)
+        recomputed = fused_attention_backward(q, k, v, o, do, scale)
         torch.cuda.synchronize()
+        deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
         ref = fused_attention_backward_reference(q, k, v, o, do, scale)
         ref_max = max(r.float().abs().max().item() for r in ref)
         err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+        err_recomputed = max((a.float() - b.float()).abs().max().item() for a, b in zip(recomputed, ref))
         # the plain version against torch autograd through the plain forward
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
         auto = torch.autograd.grad(fused_attention_reference(*leaves, scale), leaves, do)
         auto_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(auto, ref))
         del leaves, auto
         tol = BWD_REL_TOL[dtype] * ref_max
-        ok = all(bool(torch.isfinite(g).all()) for g in got) and err <= tol and auto_err <= tol
-        ms = cuda_ms(lambda: fused_attention_backward(q, k, v, o, do, scale), repeats=10)
-        plain_ms = cuda_ms(lambda: fused_attention_backward_reference(q, k, v, o, do, scale), repeats=3, warmup=1)
+        ok = (all(bool(torch.isfinite(g).all()) for g in got + recomputed) and deterministic
+              and max(err, err_recomputed, auto_err) <= tol)
+        ms = cuda_ms(lambda: fused_attention_backward(q, k, v, o, do, scale, lse), repeats=10)
+        ms_recomputed = cuda_ms(lambda: fused_attention_backward(q, k, v, o, do, scale), repeats=10)
+        plain_ms = cuda_ms(lambda: fused_attention_backward_reference(q, k, v, o, do, scale, lse),
+                           repeats=3, warmup=1)
         # (1, BH, T, d): the 4-D layout SDPA's fused backends take
         q4, k4, v4 = (x[None].detach().requires_grad_() for x in (q, k, v))
         out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
         library_ms = cuda_ms(
             lambda: torch.autograd.grad(out4, (q4, k4, v4), do[None], retain_graph=True), repeats=10
         )
-        row = dict(bh=bh, t=t, d=d, shape=[bh, t, d], dtype=dtype, what=what, max_abs_err=err,
-                   autograd_vs_plain=auto_err,
-                   ref_max_abs=ref_max, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   **attention_bwd_bound(bh, t, d, dtype, exp_per_s))
+        row = dict(bh=bh, t=t, d=d, shape=[bh, t, d], dtype=dtype, q_scale=peak, what=what, max_abs_err=err,
+                   max_abs_err_recomputed_lse=err_recomputed, autograd_vs_plain=auto_err, deterministic=deterministic,
+                   ref_max_abs=ref_max, tol=tol, ok=ok, ms=ms, ms_recomputed_lse=ms_recomputed, plain_ms=plain_ms,
+                   library_ms=library_ms, **attention_bwd_bound(bh, t, d, dtype, exp_per_s))
         log("K1-bwd " + json.dumps(row))
         results.append(row)
-        del q, k, v, do, o, got, ref, q4, k4, v4, out4
+        del q, k, v, do, o, lse, got, again, recomputed, ref, q4, k4, v4, out4
         torch.cuda.empty_cache()
     bad = [r for r in results if not r["ok"]]
     if bad:
@@ -1022,9 +1074,13 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for src, text in build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(w in line for w in ("entry function", "registers", "spill")) or "error" in line.lower():
                 log(f"ptxas {src}: {line.strip()}")
     log(f"build: {build_s:.3f} s for {len(_build.SOURCES)} source(s)")
+    spills = tensor_core_attention_spills(build_logs)
+    log("ptxas-spills " + json.dumps(spills))
+    if not spills or any(spills.values()):
+        raise AssertionError(f"ptxas spilled in a tensor-core attention kernel, or reported none: {spills}")
 
     # 3-4. K1-fwd and K1-bwd against their plain versions
     k1 = phase_kernels(exp_per_s)

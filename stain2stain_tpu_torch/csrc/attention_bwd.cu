@@ -3,12 +3,14 @@
 // Replaces the TPU kernel stain2stain_tpu/ops/pallas_attention.py::_bwd_kernel
 // (launched by ::_fused_attention_bwd). Same function: per (batch*head) slice,
 // given q, k, v, the forward's output o and the cotangent do,
-//     s = q . k^T * scale,  p = softmax(s)        (recomputed, not saved)
+//     s = q . k^T * scale,  p = softmax(s) = exp(s - lse)
 //     delta = rowsum(do * o)                      (o as stored, in q's dtype)
 //     dv = p^T . do,  ds = p * (do . v^T - delta)
 //     dq = ds . k * scale,  dk = ds^T . q * scale
-// with every product and sum in f32; dq, dk and dv are written once, in the
-// inputs' dtype. Inputs are contiguous (BH, T, D) f32 or bf16; D is 16, 32 or 64.
+// with f32 sums; dq, dk and dv are written once, in the inputs' dtype. Inputs
+// are contiguous (BH, T, D) f32 or bf16; D is 16, 32 or 64. The row
+// log-sum-exp lse (natural log, f32 (BH, T)) comes from K1-fwd, or is
+// recomputed here when the caller passes none.
 //
 // Bound on the H100 at the 256-px training shape (BH 512 = 16 heads x batch
 // 32, T 1024, D 32: the mid block): 10*BH*T^2*D = 172 GFLOP of products
@@ -17,49 +19,115 @@
 // 8*BH*T*D elements of q/k/v/o/do/dq/dk/dv (0.27 GB in bf16, ~0.08 ms). So the
 // products bound it: on the tensor cores for bf16, on the FP32 pipes for f32.
 //
-// Design (first, simple and right). The TPU kernel walks the q blocks of one
-// (batch*head) in order on one core and accumulates dk/dv in the output block
-// across those steps; Hopper blocks run in no order, so the work is split into
-// three passes, deterministic and without atomics:
-//   1. stats: one block of 64 threads per (bh, 64-query tile), one query row a
-//      thread. It recomputes the row's log-sum-exp over all keys (online max
-//      and sum over 16-key chunks, as K1-fwd) and delta = rowsum(do*o), into an
-//      f32 (BH, T) scratch pair that the wrapper allocates.
-//   2. dk/dv: one block per (bh, 64-key tile), one key row a thread; k_j, v_j
-//      and the f32 dk_j/dv_j accumulators live in registers. The block walks
-//      every query in tiles staged in shared memory (q, do, lse, delta; every
-//      thread reads the same query, so the reads broadcast) and writes dk/dv
-//      once.
-//   3. dq: one block per (bh, 64-query tile), one query row a thread; q_i, do_i
-//      and the dq_i accumulator in registers, 64-key k/v tiles in shared memory.
-// A ragged T is masked: staged rows past T load as zero, queries past T get
-// lse = +inf (so p = 0), keys past T score p = 0 in pass 3, and rows past T
-// compute but do not store.
-// Everything runs as plain FMAs on the FP32 pipes (8*D FMAs per (query, key)
-// pair over the three passes, against the 5*D of the bound's products), so
-// the kernel is FMA-bound well above the bound for bf16. At D = 64 the 4*D
-// registers of pass 2 exceed the 255 a thread may hold and ptxas spills; the
-// main path runs D = 32. Tensor cores (mma.sync, then wgmma/TMA) are later work.
+// The TPU kernel walks the q blocks of one (batch*head) in order on one core
+// and accumulates dk/dv in the output block across those steps; Hopper blocks
+// run in no order, so the work is split into passes, deterministic and without
+// atomics (the result repeats bit for bit):
+//   1. prep: one block per (bh, 64 rows). delta = rowsum(do*o) and lse in log2
+//      units (lse * log2 e) into an f32 (BH, T_pad, 2) scratch the wrapper
+//      allocates, T_pad = T rounded up to 64; rows past T get (+inf, 0), so
+//      their p is 0. Without a given lse, bf16 recomputes it on the tensor
+//      cores (K1-fwd's online softmax without p.v) and f32 on the FP32 pipes.
+//   2. dk/dv: one block per (bh, 64 keys).
+//   3. dq: one block per (bh, 64 queries).
+//
+// bf16 (attention_common.cuh; mma.sync.m16n8k16 bf16 -> f32 throughout, 4
+// warps of 16 rows, 64-row tiles of the other operand streaming through
+// padded shared memory by cp.async, double buffered):
+//   2. each warp holds 16 keys' k and v fragments in registers and walks the
+//      query tiles (q, do and their (lse, delta) rows staged):
+//        s^T = k.q^T, p^T = exp2(s^T c - lse2), dv += p^T.do,
+//        dp^T = v.do^T, ds^T = p^T (dp^T - delta), dk += ds^T.q;
+//   3. each warp holds 16 queries' q and do fragments, walks the key tiles:
+//        s = q.k^T, p = exp2(s c - lse2), dp = do.v^T, ds = p (dp - delta),
+//        dq += ds.k.
+//   p and ds are rounded to bf16 as the A operand of the next product. Seven
+//   products against the bound's five (s and dp are computed in both passes):
+//   14*BH*T^2*D, about 0.24 ms at the training shape, the price of no atomics
+//   (SDPA's FlashAttention-2 backward adds dq with f32 atomics).
+// f32 (one row per thread, 64-thread blocks, FP32 pipes; f32 keeps f32
+// products): 2. one key row a thread, k_j, v_j and dk_j/dv_j in registers, 32
+// queries staged per step (reads broadcast); 3. one query row a thread, 64-key
+// k/v tiles staged. At D = 64 the 4*D registers of f32 pass 2 spill.
 //
 // Launches on the caller's stream, allocates nothing, and returns the first
 // launch error (cudaGetLastError) so the Python wrapper can raise on it.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "attention_common.cuh"
+
 namespace {
 
-constexpr int kRows = 64;    // rows (queries or keys) per block, one per thread
-constexpr int kKeyTile = 64; // keys staged in shared memory per step (passes 1, 3)
-constexpr int kQTile = 32;   // queries staged in shared memory per step (pass 2)
-constexpr int kChunk = 16;   // keys scored per online-softmax update (pass 1)
+using namespace s2s_attn;
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ float load_f32(const bf16* p) { return __bfloat162float(*p); }
+
+// ---- pass 1: delta and lse2 ------------------------------------------------
+
+// lse_in: natural-log lse (BH, T) from K1-fwd, or null: bf16 recomputes it here.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ o,
+                          const T* __restrict__ dout, const float* __restrict__ lse_in, float2* __restrict__ stats,
+                          int t_len, int t_pad, int n_tiles, float c) {
+  const int bh = blockIdx.x / n_tiles;
+  const int tile = blockIdx.x - bh * n_tiles;
+  const int tid = threadIdx.x;
+  const int64_t base = static_cast<int64_t>(bh) * t_len * D;
+  float2* st = stats + static_cast<int64_t>(bh) * t_pad;
+
+  {  // delta: two threads a row, half of D each
+    const int row = tile * kTile + (tid >> 1);
+    const int half = tid & 1;
+    float dlt = 0.f;
+    if (row < t_len) {
+      const int64_t off = base + static_cast<int64_t>(row) * D + half * (D / 2);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dlt = fmaf(load_f32(dout + off + i), load_f32(o + off + i), dlt);
+    }
+    dlt += __shfl_xor_sync(0xffffffffu, dlt, 1);
+    if (half == 0) {
+      st[row].y = dlt;
+      if (row >= t_len) {
+        st[row].x = INFINITY;  // p = 0 for queries past T
+      } else if (lse_in != nullptr) {
+        st[row].x = lse_in[static_cast<int64_t>(bh) * t_len + row] * kLog2e;
+      }
+    }
+  }
+
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (lse_in == nullptr) {  // recompute lse on the tensor cores
+      __shared__ __align__(16) bf16 ks[2 * kTileElems<D>];
+      const int lane = tid & 31;
+      const int r0 = tile * kTile + (tid >> 5) * 16;
+      uint32_t qa[D / 16][4];
+      load_a_frags<D>(qa, q + base, r0, t_len, lane);
+      float m[2] = {-INFINITY, -INFINITY};
+      float l[2] = {0.f, 0.f};
+      float unused[D / 8][4];
+      softmax_rows<D, false>(k + base, nullptr, t_len, c, qa, ks, nullptr, m, l, unused);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float sum = quad_sum(l[h]);
+        const int row = r0 + (lane >> 2) + 8 * h;
+        if (row < t_len && (lane & 3) == 0) st[row].x = m[h] * c + log2f(sum);
+      }
+    }
+  }
+}
+
+// f32 without a given lse: one query row a thread recomputes it (online max
+// and sum over 16-key chunks, as K1-fwd's f32 kernel) with delta.
+constexpr int kF32Rows = 64;   // rows (queries or keys) per block, one per thread
+constexpr int kF32Keys = 64;   // keys staged in shared memory per step
+constexpr int kF32Queries = 32;  // queries staged in shared memory per step (pass 2)
+constexpr int kChunk = 16;     // keys scored per online-softmax update
 
 template <int D>
 __device__ __forceinline__ float dot_row(const float* a, const float* smem_row) {
@@ -89,33 +157,30 @@ __device__ __forceinline__ void axpy_row(float* acc, float alpha, const float* s
   }
 }
 
-// Stage rows [r0, r0 + n_rows) of a (T, D) slice as f32; rows past T are zero.
-template <typename T, int D, int N_ROWS, int N_THREADS>
-__device__ __forceinline__ void stage_rows(float (*dst)[D], const T* __restrict__ src,
-                                           int64_t base, int r0, int t_len, int tid) {
-  for (int idx = tid; idx < N_ROWS * D; idx += N_THREADS) {
+// Stage rows [r0, r0 + n_rows) of a (T, D) f32 slice; rows past T are zero.
+template <int D, int N_ROWS>
+__device__ __forceinline__ void stage_rows(float (*dst)[D], const float* __restrict__ src, int64_t base, int r0,
+                                           int t_len, int tid) {
+  for (int idx = tid; idx < N_ROWS * D; idx += kF32Rows) {
     const int r = idx / D;
     const int c = idx - r * D;
     const int row = r0 + r;
-    dst[r][c] = row < t_len ? load_f32(src + base + static_cast<int64_t>(row) * D + c) : 0.f;
+    dst[r][c] = row < t_len ? src[base + static_cast<int64_t>(row) * D + c] : 0.f;
   }
 }
 
-// Pass 1: per query row, lse (log2 domain, scores pre-scaled by scale*log2 e)
-// and delta = rowsum(do * o).
-template <typename T, int D>
-__global__ void __launch_bounds__(kRows)
-attention_bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ o, const T* __restrict__ dout,
-                           float* __restrict__ lse, float* __restrict__ delta,
-                           int t_len, int n_tiles, float q_scale) {
+template <int D>
+__global__ void __launch_bounds__(kF32Rows)
+attention_bwd_stats_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ o, const float* __restrict__ dout,
+                               float2* __restrict__ stats, int t_len, int t_pad, int n_tiles, float q_scale) {
   static_assert(D % 4 == 0, "head dim must be a multiple of 4");
-  __shared__ __align__(16) float ks[kKeyTile][D];
+  __shared__ __align__(16) float ks[kF32Keys][D];
 
   const int bh = blockIdx.x / n_tiles;
   const int tile = blockIdx.x - bh * n_tiles;
   const int tid = threadIdx.x;
-  const int row = tile * kRows + tid;
+  const int row = tile * kF32Rows + tid;
   const bool row_valid = row < t_len;
   const int64_t base = static_cast<int64_t>(bh) * t_len * D;
   const int64_t row_off = base + static_cast<int64_t>(row) * D;
@@ -124,17 +189,17 @@ attention_bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float dlt = 0.f;
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    qr[i] = row_valid ? load_f32(q + row_off + i) * q_scale : 0.f;
-    if (row_valid) dlt = fmaf(load_f32(dout + row_off + i), load_f32(o + row_off + i), dlt);
+    qr[i] = row_valid ? q[row_off + i] * q_scale : 0.f;
+    if (row_valid) dlt = fmaf(dout[row_off + i], o[row_off + i], dlt);
   }
   float m = -INFINITY;
   float l = 0.f;
 
-  for (int j0 = 0; j0 < t_len; j0 += kKeyTile) {
+  for (int j0 = 0; j0 < t_len; j0 += kF32Keys) {
     __syncthreads();  // the previous tile is fully consumed
-    stage_rows<T, D, kKeyTile, kRows>(ks, k, base, j0, t_len, tid);
+    stage_rows<D, kF32Keys>(ks, k, base, j0, t_len, tid);
     __syncthreads();
-    const int n_keys = min(kKeyTile, t_len - j0);
+    const int n_keys = min(kF32Keys, t_len - j0);
     for (int c0 = 0; c0 < n_keys; c0 += kChunk) {
       float s[kChunk];
       float cmax = -INFINITY;
@@ -152,55 +217,234 @@ attention_bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m = m_new;
     }
   }
-  if (row_valid) {
-    const int64_t idx = static_cast<int64_t>(bh) * t_len + row;
-    lse[idx] = m + log2f(l);
-    delta[idx] = dlt;
-  }
+  stats[static_cast<int64_t>(bh) * t_pad + row] = row_valid ? make_float2(m + log2f(l), dlt)
+                                                            : make_float2(INFINITY, 0.f);
 }
 
-// Pass 2: dk and dv, one key row per thread, every query staged in turn.
-template <typename T, int D>
-__global__ void __launch_bounds__(kRows)
-attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          T* __restrict__ dk, T* __restrict__ dv,
-                          int t_len, int n_tiles, float q_scale, float scale) {
-  __shared__ __align__(16) float qs[kQTile][D];
-  __shared__ __align__(16) float dos[kQTile][D];
-  __shared__ float lses[kQTile];
-  __shared__ float dlts[kQTile];
+// ---- bf16 passes 2 and 3: tensor cores ---------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                              const bf16* __restrict__ dout, const float2* __restrict__ stats,
+                              bf16* __restrict__ dk, bf16* __restrict__ dv, int t_len, int t_pad, int n_tiles,
+                              float c, float scale) {
+  __shared__ __align__(16) bf16 qs[2 * kTileElems<D>];
+  __shared__ __align__(16) bf16 dos[2 * kTileElems<D>];
+  __shared__ __align__(16) float2 sts[2 * kTile];  // (lse2, delta) of each staged query
 
   const int bh = blockIdx.x / n_tiles;
   const int tile = blockIdx.x - bh * n_tiles;
   const int tid = threadIdx.x;
-  const int key = tile * kRows + tid;
+  const int lane = tid & 31;
+  const int t = lane & 3;
+  const int r0 = tile * kTile + (tid >> 5) * 16;  // this warp's keys
+  const int64_t base = static_cast<int64_t>(bh) * t_len * D;
+  const bf16* qb = q + base;
+  const bf16* dob = dout + base;
+  const float2* stb = stats + static_cast<int64_t>(bh) * t_pad;
+
+  uint32_t ka[D / 16][4], va[D / 16][4];
+  load_a_frags<D>(ka, k + base, r0, t_len, lane);
+  load_a_frags<D>(va, v + base, r0, t_len, lane);
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.f;
+
+  // 64 (lse2, delta) pairs = 32 chunks of 16 bytes; T_pad rows always exist
+  auto stage_stats = [&](float2* dst, int row0) {
+    if (tid < kTile / 2) cp_async16(dst + 2 * tid, stb + row0 + 2 * tid, true);
+  };
+  const int n_q = (t_len + kTile - 1) / kTile;
+  stage_tile<D>(qs, qb, 0, t_len, tid);
+  stage_tile<D>(dos, dob, 0, t_len, tid);
+  stage_stats(sts, 0);
+  cp_async_commit();
+  for (int i = 0; i < n_q; ++i) {
+    const int cur = i & 1;
+    if (i + 1 < n_q) {
+      const int nxt = (cur ^ 1) * kTileElems<D>;
+      stage_tile<D>(qs + nxt, qb, (i + 1) * kTile, t_len, tid);
+      stage_tile<D>(dos + nxt, dob, (i + 1) * kTile, t_len, tid);
+      stage_stats(sts + (cur ^ 1) * kTile, (i + 1) * kTile);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* qt = qs + cur * kTileElems<D>;
+    const bf16* dot = dos + cur * kTileElems<D>;
+    const float2* stt = sts + cur * kTile;
+
+    float p[8][4];  // p^T: this warp's 16 keys x the tile's 64 queries
+    warp_abt<D>(p, ka, qt, lane);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float4 st = *reinterpret_cast<const float4*>(stt + 8 * nt + 2 * t);  // queries 2t, 2t + 1
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        p[nt][2 * h] = exp2f(fmaf(p[nt][2 * h], c, -st.x));
+        p[nt][2 * h + 1] = exp2f(fmaf(p[nt][2 * h + 1], c, -st.z));
+      }
+    }
+    warp_pb<D>(dv_acc, p, dot, lane);  // dv += p^T . do
+    float ds[8][4];
+    warp_abt<D>(ds, va, dot, lane);  // dp^T = v . do^T
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float4 st = *reinterpret_cast<const float4*>(stt + 8 * nt + 2 * t);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        ds[nt][2 * h] = p[nt][2 * h] * (ds[nt][2 * h] - st.y);
+        ds[nt][2 * h + 1] = p[nt][2 * h + 1] * (ds[nt][2 * h + 1] - st.w);
+      }
+    }
+    warp_pb<D>(dk_acc, ds, qt, lane);  // dk += ds^T . q
+    __syncthreads();  // the tile is consumed before its buffer is refilled
+  }
+
+  const int g = lane >> 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    if (row >= t_len) continue;
+    const int64_t off = base + static_cast<int64_t>(row) * D + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * nt) =
+          __floats2bfloat162_rn(dk_acc[nt][2 * h] * scale, dk_acc[nt][2 * h + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * nt) =
+          __floats2bfloat162_rn(dv_acc[nt][2 * h], dv_acc[nt][2 * h + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                            const bf16* __restrict__ dout, const float2* __restrict__ stats,
+                            bf16* __restrict__ dq, int t_len, int t_pad, int n_tiles, float c, float scale) {
+  __shared__ __align__(16) bf16 ks[2 * kTileElems<D>];
+  __shared__ __align__(16) bf16 vs[2 * kTileElems<D>];
+
+  const int bh = blockIdx.x / n_tiles;
+  const int tile = blockIdx.x - bh * n_tiles;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = tile * kTile + (tid >> 5) * 16;  // this warp's queries
+  const int64_t base = static_cast<int64_t>(bh) * t_len * D;
+  const bf16* kb = k + base;
+  const bf16* vb = v + base;
+
+  uint32_t qa[D / 16][4], doa[D / 16][4];
+  load_a_frags<D>(qa, q + base, r0, t_len, lane);
+  load_a_frags<D>(doa, dout + base, r0, t_len, lane);
+  float nlse[2], dlt[2];  // rows g and g + 8 (rows past T: lse2 = +inf, so p = 0)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float2 st = stats[static_cast<int64_t>(bh) * t_pad + r0 + g + 8 * h];
+    nlse[h] = -st.x;
+    dlt[h] = st.y;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+  const int n_k = (t_len + kTile - 1) / kTile;
+  stage_tile<D>(ks, kb, 0, t_len, tid);
+  stage_tile<D>(vs, vb, 0, t_len, tid);
+  cp_async_commit();
+  for (int j = 0; j < n_k; ++j) {
+    const int cur = (j & 1) * kTileElems<D>;
+    if (j + 1 < n_k) {
+      const int nxt = kTileElems<D> - cur;
+      stage_tile<D>(ks + nxt, kb, (j + 1) * kTile, t_len, tid);
+      stage_tile<D>(vs + nxt, vb, (j + 1) * kTile, t_len, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    float p[8][4];
+    warp_abt<D>(p, qa, ks + cur, lane);  // s = q . k^T
+    const int key0 = j * kTile;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool valid = key0 + 8 * nt + 2 * t + (e & 1) < t_len;  // zero-filled keys past T get p = 0
+        p[nt][e] = valid ? exp2f(fmaf(p[nt][e], c, nlse[e >> 1])) : 0.f;
+      }
+    float ds[8][4];
+    warp_abt<D>(ds, doa, vs + cur, lane);  // dp = do . v^T
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[nt][e] = p[nt][e] * (ds[nt][e] - dlt[e >> 1]);
+    warp_pb<D>(acc, ds, ks + cur, lane);  // dq += ds . k
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    if (row >= t_len) continue;
+    bf16* out = dq + base + static_cast<int64_t>(row) * D + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * nt) =
+          __floats2bfloat162_rn(acc[nt][2 * h] * scale, acc[nt][2 * h + 1] * scale);
+    }
+  }
+}
+
+// ---- f32 passes 2 and 3: FP32 pipes -------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kF32Rows)
+attention_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ dout,
+                              const float2* __restrict__ stats, float* __restrict__ dk, float* __restrict__ dv,
+                              int t_len, int t_pad, int n_tiles, float q_scale, float scale) {
+  __shared__ __align__(16) float qs[kF32Queries][D];
+  __shared__ __align__(16) float dos[kF32Queries][D];
+  __shared__ float lses[kF32Queries];
+  __shared__ float dlts[kF32Queries];
+
+  const int bh = blockIdx.x / n_tiles;
+  const int tile = blockIdx.x - bh * n_tiles;
+  const int tid = threadIdx.x;
+  const int key = tile * kF32Rows + tid;
   const bool key_valid = key < t_len;
   const int64_t base = static_cast<int64_t>(bh) * t_len * D;
   const int64_t key_off = base + static_cast<int64_t>(key) * D;
-  const int64_t stat_base = static_cast<int64_t>(bh) * t_len;
+  const int64_t stat_base = static_cast<int64_t>(bh) * t_pad;
 
   float kr[D], vr[D], dkr[D], dvr[D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    kr[i] = key_valid ? load_f32(k + key_off + i) * q_scale : 0.f;
-    vr[i] = key_valid ? load_f32(v + key_off + i) : 0.f;
+    kr[i] = key_valid ? k[key_off + i] * q_scale : 0.f;
+    vr[i] = key_valid ? v[key_off + i] : 0.f;
     dkr[i] = 0.f;
     dvr[i] = 0.f;
   }
 
-  for (int i0 = 0; i0 < t_len; i0 += kQTile) {
+  for (int i0 = 0; i0 < t_len; i0 += kF32Queries) {
     __syncthreads();
-    stage_rows<T, D, kQTile, kRows>(qs, q, base, i0, t_len, tid);
-    stage_rows<T, D, kQTile, kRows>(dos, dout, base, i0, t_len, tid);
-    if (tid < kQTile) {
-      const int row = i0 + tid;
-      lses[tid] = row < t_len ? lse[stat_base + row] : INFINITY;  // p = 0 past T
-      dlts[tid] = row < t_len ? delta[stat_base + row] : 0.f;
+    stage_rows<D, kF32Queries>(qs, q, base, i0, t_len, tid);
+    stage_rows<D, kF32Queries>(dos, dout, base, i0, t_len, tid);
+    if (tid < kF32Queries) {  // rows past T hold (+inf, 0): p = 0
+      const float2 st = stats[stat_base + i0 + tid];
+      lses[tid] = st.x;
+      dlts[tid] = st.y;
     }
     __syncthreads();
-    const int n_q = min(kQTile, t_len - i0);
+    const int n_q = min(kF32Queries, t_len - i0);
 #pragma unroll 2
     for (int i = 0; i < n_q; ++i) {
       const float p = exp2f(dot_row<D>(kr, &qs[i][0]) - lses[i]);
@@ -212,47 +456,45 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (key_valid) {
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-      store_f32(dk + key_off + i, dkr[i] * scale);
-      store_f32(dv + key_off + i, dvr[i]);
+      dk[key_off + i] = dkr[i] * scale;
+      dv[key_off + i] = dvr[i];
     }
   }
 }
 
-// Pass 3: dq, one query row per thread, every key staged in turn.
-template <typename T, int D>
-__global__ void __launch_bounds__(kRows)
-attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        T* __restrict__ dq, int t_len, int n_tiles, float q_scale, float scale) {
-  __shared__ __align__(16) float ks[kKeyTile][D];
-  __shared__ __align__(16) float vs[kKeyTile][D];
+template <int D>
+__global__ void __launch_bounds__(kF32Rows)
+attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                            const float* __restrict__ dout, const float2* __restrict__ stats,
+                            float* __restrict__ dq, int t_len, int t_pad, int n_tiles, float q_scale, float scale) {
+  __shared__ __align__(16) float ks[kF32Keys][D];
+  __shared__ __align__(16) float vs[kF32Keys][D];
 
   const int bh = blockIdx.x / n_tiles;
   const int tile = blockIdx.x - bh * n_tiles;
   const int tid = threadIdx.x;
-  const int row = tile * kRows + tid;
+  const int row = tile * kF32Rows + tid;
   const bool row_valid = row < t_len;
   const int64_t base = static_cast<int64_t>(bh) * t_len * D;
   const int64_t row_off = base + static_cast<int64_t>(row) * D;
-  const int64_t stat = static_cast<int64_t>(bh) * t_len + row;
 
   float qr[D], dor[D], acc[D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    qr[i] = row_valid ? load_f32(q + row_off + i) * q_scale : 0.f;
-    dor[i] = row_valid ? load_f32(dout + row_off + i) : 0.f;
+    qr[i] = row_valid ? q[row_off + i] * q_scale : 0.f;
+    dor[i] = row_valid ? dout[row_off + i] : 0.f;
     acc[i] = 0.f;
   }
-  const float lse_i = row_valid ? lse[stat] : INFINITY;
-  const float dlt_i = row_valid ? delta[stat] : 0.f;
+  const float2 st = stats[static_cast<int64_t>(bh) * t_pad + row];  // (+inf, 0) past T
+  const float lse_i = st.x;
+  const float dlt_i = st.y;
 
-  for (int j0 = 0; j0 < t_len; j0 += kKeyTile) {
+  for (int j0 = 0; j0 < t_len; j0 += kF32Keys) {
     __syncthreads();
-    stage_rows<T, D, kKeyTile, kRows>(ks, k, base, j0, t_len, tid);
-    stage_rows<T, D, kKeyTile, kRows>(vs, v, base, j0, t_len, tid);
+    stage_rows<D, kF32Keys>(ks, k, base, j0, t_len, tid);
+    stage_rows<D, kF32Keys>(vs, v, base, j0, t_len, tid);
     __syncthreads();
-    const int n_keys = min(kKeyTile, t_len - j0);
+    const int n_keys = min(kF32Keys, t_len - j0);
 #pragma unroll 2
     for (int j = 0; j < n_keys; ++j) {
       const float p = exp2f(dot_row<D>(qr, &ks[j][0]) - lse_i);
@@ -262,70 +504,98 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (row_valid) {
 #pragma unroll
-    for (int i = 0; i < D; ++i) store_f32(dq + row_off + i, acc[i] * scale);
+    for (int i = 0; i < D; ++i) dq[row_off + i] = acc[i] * scale;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-           void* dq, void* dk, void* dv, float* lse, float* delta, int bh, int t_len,
-           float scale, cudaStream_t stream) {
-  const float q_scale = scale * 1.4426950408889634f;  // log2(e): softmax via exp2
-  const int n_tiles = (t_len + kRows - 1) / kRows;
-  const dim3 grid(static_cast<unsigned>(bh) * n_tiles);
-  const dim3 block(kRows);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* op = static_cast<const T*>(o);
-  const T* dop = static_cast<const T*>(dout);
+// ---- launch ------------------------------------------------------------------
 
-  attention_bwd_stats_kernel<T, D><<<grid, block, 0, stream>>>(qp, kp, op, dop, lse, delta,
-                                                               t_len, n_tiles, q_scale);
+template <int D>
+int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout, const float* lse,
+                bf16* dq, bf16* dk, bf16* dv, float2* stats, int bh, int t_len, int t_pad, float scale,
+                cudaStream_t stream) {
+  const float c = scale * kLog2e;
+  const int n_tiles = t_pad / kTile;
+  const unsigned grid = static_cast<unsigned>(bh) * n_tiles;
+  attention_bwd_prep_kernel<bf16, D><<<grid, kThreads, 0, stream>>>(q, k, o, dout, lse, stats, t_len, t_pad,
+                                                                     n_tiles, c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dkdv_kernel<T, D><<<grid, block, 0, stream>>>(
-      qp, kp, vp, dop, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), t_len, n_tiles,
-      q_scale, scale);
+  attention_bwd_dkdv_mma_kernel<D><<<grid, kThreads, 0, stream>>>(q, k, v, dout, stats, dk, dv, t_len, t_pad,
+                                                                  n_tiles, c, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dq_kernel<T, D><<<grid, block, 0, stream>>>(
-      qp, kp, vp, dop, lse, delta, static_cast<T*>(dq), t_len, n_tiles, q_scale, scale);
+  attention_bwd_dq_mma_kernel<D><<<grid, kThreads, 0, stream>>>(q, k, v, dout, stats, dq, t_len, t_pad, n_tiles,
+                                                                c, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_for_dim(int d, const void* q, const void* k, const void* v, const void* o,
-                   const void* dout, void* dq, void* dk, void* dv, float* lse, float* delta,
-                   int bh, int t_len, float scale, cudaStream_t stream) {
-  switch (d) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, dout, dq, dk, dv, lse, delta, bh, t_len, scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, dout, dq, dk, dv, lse, delta, bh, t_len, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, lse, delta, bh, t_len, scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+template <int D>
+int launch_f32(const float* q, const float* k, const float* v, const float* o, const float* dout, const float* lse,
+               float* dq, float* dk, float* dv, float2* stats, int bh, int t_len, int t_pad, float scale,
+               cudaStream_t stream) {
+  static_assert(kF32Rows == kTile, "one grid for every pass");
+  const float q_scale = scale * kLog2e;  // softmax via exp2
+  const int n_tiles = t_pad / kF32Rows;
+  const unsigned grid = static_cast<unsigned>(bh) * n_tiles;
+  if (lse != nullptr) {
+    attention_bwd_prep_kernel<float, D><<<grid, kThreads, 0, stream>>>(q, k, o, dout, lse, stats, t_len, t_pad,
+                                                                       n_tiles, q_scale);
+  } else {
+    attention_bwd_stats_f32_kernel<D><<<grid, kF32Rows, 0, stream>>>(q, k, o, dout, stats, t_len, t_pad, n_tiles,
+                                                                     q_scale);
   }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attention_bwd_dkdv_f32_kernel<D><<<grid, kF32Rows, 0, stream>>>(q, k, v, dout, stats, dk, dv, t_len, t_pad,
+                                                                  n_tiles, q_scale, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attention_bwd_dq_f32_kernel<D><<<grid, kF32Rows, 0, stream>>>(q, k, v, dout, stats, dq, t_len, t_pad, n_tiles,
+                                                                q_scale, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
+           void* dq, void* dk, void* dv, float2* stats, int bh, int t_len, int t_pad, bool bf16_in, float scale,
+           cudaStream_t stream) {
+  if (bf16_in) {
+    return launch_bf16<D>(static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                          static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
+                          static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), stats, bh,
+                          t_len, t_pad, scale, stream);
+  }
+  return launch_f32<D>(static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+                       static_cast<const float*>(o), static_cast<const float*>(dout), lse,
+                       static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), stats, bh, t_len,
+                       t_pad, scale, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. lse and delta: f32 (BH, T) scratch.
-// Returns a cudaError_t (0 = success).
-extern "C" int s2s_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                                 const void* dout, void* dq, void* dk, void* dv, void* lse,
-                                 void* delta, int bh, int t_len, int d, int dtype, float scale,
-                                 void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. lse: natural-log (BH, T) f32 from K1-fwd,
+// or null to recompute it. stats: f32 (BH, T_pad, 2) scratch, T_pad = T
+// rounded up to 64. bf16 rows must start 16-byte aligned (contiguous tensors
+// do). Returns a cudaError_t (0 = success).
+extern "C" int s2s_attention_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                                 const void* lse, void* dq, void* dk, void* dv, void* stats, int bh, int t_len,
+                                 int d, int dtype, float scale, void* stream) {
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (bh <= 0 || t_len <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int t_pad = (t_len + kTile - 1) / kTile * kTile;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* lp = static_cast<float*>(lse);
-  float* dp = static_cast<float*>(delta);
-  if (dtype == 0) {
-    return launch_for_dim<float>(d, q, k, v, o, dout, dq, dk, dv, lp, dp, bh, t_len, scale, s);
+  const float* lp = static_cast<const float*>(lse);
+  float2* sp = static_cast<float2*>(stats);
+  const bool bf = dtype == 1;
+  switch (d) {
+    case 16:
+      return launch<16>(q, k, v, o, dout, lp, dq, dk, dv, sp, bh, t_len, t_pad, bf, scale, s);
+    case 32:
+      return launch<32>(q, k, v, o, dout, lp, dq, dk, dv, sp, bh, t_len, t_pad, bf, scale, s);
+    case 64:
+      return launch<64>(q, k, v, o, dout, lp, dq, dk, dv, sp, bh, t_len, t_pad, bf, scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_for_dim<__nv_bfloat16>(d, q, k, v, o, dout, dq, dk, dv, lp, dp, bh, t_len,
-                                       scale, s);
 }

@@ -5,7 +5,10 @@
 //     o = softmax(q . k^T * scale) . v
 // with the logits, the row max and the row sum in f32 and the p.v sum in f32,
 // output in q's dtype; the (T, T) logits never reach device memory. Inputs are
-// contiguous (BH, T, D) f32 or bf16 tensors; D is 16, 32 or 64.
+// contiguous (BH, T, D) f32 or bf16 tensors; D is 16, 32 or 64. Optionally
+// also each row's log-sum-exp of the scaled logits, f32 (BH, T), which K1-bwd
+// takes instead of recomputing it (the JAX VJP recomputes it only because lane
+// padding made such arrays 128x larger on the TPU, pallas_attention.py:22-27).
 //
 // Bound on the H100 at the 256-px serving shape (BH 256, T 1024, D 32, one
 // tile batch of 16 through the mid block): 4*BH*T^2*D = 34.4 GFLOP of products
@@ -15,55 +18,97 @@
 // exponential sets the bound, not the products or the bytes. For f32 inputs,
 // which keep f32 products, the 67 TFLOP/s of the FP32 pipes set it (~0.5 ms).
 //
-// Design (first, simple and right; not a copy of the Pallas blocking, which
-// holds the full-T k/v in VMEM and one (q_block, T) logits block):
-//   * one block of 64 threads per (bh, 64-query tile); each thread owns one
-//     query row: q (pre-scaled by scale*log2(e)) and the f32 accumulator live
-//     in registers;
-//   * k/v tiles of 64 keys are converted to f32 and staged through shared
-//     memory; every thread reads the same key row, so the reads broadcast;
-//   * online softmax over chunks of 16 keys (running max m and sum l, the
-//     accumulator rescaled once per chunk) with exp2f, so the logits exist
-//     only as 16 registers per thread;
-//   * a ragged T is masked: out-of-range keys load as 0 and score -inf,
-//     out-of-range query rows compute but do not store.
-// The products run as plain FMAs on the FP32 pipes, so this kernel is bound by
-// FMA throughput (2*BH*T^2*D FMAs), well above the exponential bound: a wgmma/TMA
-// design that moves the products to the tensor cores, and then works on the
-// exponential (e.g. part of it emulated on the FMA pipes), is later work.
+// bf16 design (attention_common.cuh; FlashAttention-2's shape): one block of 4
+// warps per (bh, 64-query tile), each warp 16 query rows whose q fragments load
+// once into registers; 64-key k and v tiles stream through padded shared
+// memory by cp.async, double buffered; s = q.k^T on mma.sync.m16n8k16 bf16 ->
+// f32 (products of bf16 values are exact, so s differs from f32 logits only in
+// summation order); the online softmax stays in registers (row max and sum over
+// the quad by shuffles, exp2 with scale*log2(e) folded into one FFMA, the
+// accumulator rescaled per tile); p is rounded to bf16 in registers and is
+// the A operand of p.v, v read by ldmatrix.trans. Keys past T score -inf; rows
+// past T compute but do not store.
+//
+// f32 design: one thread per query row, 64-thread blocks, q (pre-scaled by
+// scale*log2(e)) and the accumulator in registers, 64-key k/v tiles staged as
+// f32 in shared memory (every thread reads the same key row: broadcast), an
+// online softmax over 16-key chunks; plain FMAs on the FP32 pipes, since f32
+// serving keeps f32 products (its tolerance is 5e-5).
 //
 // Launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
 
-constexpr int kBlockQ = 64;  // queries per block, one per thread
-constexpr int kBlockK = 64;  // keys staged in shared memory per step
-constexpr int kChunk = 16;   // keys scored per online-softmax update
+using namespace s2s_attn;
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+// ---- bf16: tensor cores ----------------------------------------------------
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kBlockQ)
-attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     int t_len, int n_qtiles, float q_scale) {
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                         bf16* __restrict__ o, float* __restrict__ lse, int t_len, int n_qtiles, float c) {
+  __shared__ __align__(16) bf16 ks[2 * kTileElems<D>];
+  __shared__ __align__(16) bf16 vs[2 * kTileElems<D>];
+
+  const int bh = blockIdx.x / n_qtiles;
+  const int qtile = blockIdx.x - bh * n_qtiles;
+  const int lane = threadIdx.x & 31;
+  const int r0 = qtile * kTile + (threadIdx.x >> 5) * 16;
+  const int64_t base = static_cast<int64_t>(bh) * t_len * D;
+
+  uint32_t qa[D / 16][4];
+  load_a_frags<D>(qa, q + base, r0, t_len, lane);
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  softmax_rows<D, true>(k + base, v + base, t_len, c, qa, ks, vs, m, l, acc);
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float sum = quad_sum(l[h]);
+    const int row = r0 + g + 8 * h;
+    if (row >= t_len) continue;
+    const float inv = 1.f / sum;
+    bf16* out = o + base + static_cast<int64_t>(row) * D + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * nt) =
+          __floats2bfloat162_rn(acc[nt][2 * h] * inv, acc[nt][2 * h + 1] * inv);
+    }
+    if (lse != nullptr && t == 0) lse[static_cast<int64_t>(bh) * t_len + row] = (m[h] * c + log2f(sum)) * kLn2;
+  }
+}
+
+// ---- f32: FP32 pipes -------------------------------------------------------
+
+constexpr int kF32Rows = 64;   // queries per block, one per thread
+constexpr int kF32Keys = 64;   // keys staged in shared memory per step
+constexpr int kChunk = 16;     // keys scored per online-softmax update
+
+template <int D>
+__global__ void __launch_bounds__(kF32Rows)
+attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                         float* __restrict__ o, float* __restrict__ lse, int t_len, int n_qtiles, float q_scale) {
   static_assert(D % 4 == 0, "head dim must be a multiple of 4");
-  __shared__ __align__(16) float ks[kBlockK][D];
-  __shared__ __align__(16) float vs[kBlockK][D];
+  __shared__ __align__(16) float ks[kF32Keys][D];
+  __shared__ __align__(16) float vs[kF32Keys][D];
 
   const int bh = blockIdx.x / n_qtiles;
   const int qtile = blockIdx.x - bh * n_qtiles;
   const int tid = threadIdx.x;
-  const int row = qtile * kBlockQ + tid;
+  const int row = qtile * kF32Rows + tid;
   const bool row_valid = row < t_len;
   const int64_t base = static_cast<int64_t>(bh) * t_len * D;
 
@@ -71,30 +116,30 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float acc[D];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    qr[i] = row_valid ? load_f32(q + base + static_cast<int64_t>(row) * D + i) * q_scale : 0.f;
+    qr[i] = row_valid ? q[base + static_cast<int64_t>(row) * D + i] * q_scale : 0.f;
     acc[i] = 0.f;
   }
   float m = -INFINITY;  // running max of the (log2-scaled) scores
   float l = 0.f;        // running sum of exp2(score - m)
 
-  for (int j0 = 0; j0 < t_len; j0 += kBlockK) {
+  for (int j0 = 0; j0 < t_len; j0 += kF32Keys) {
     __syncthreads();  // the previous tile is fully consumed
-    for (int idx = tid; idx < kBlockK * D; idx += kBlockQ) {
+    for (int idx = tid; idx < kF32Keys * D; idx += kF32Rows) {
       const int r = idx / D;
-      const int c = idx - r * D;
+      const int col = idx - r * D;
       const int key = j0 + r;
       float kv = 0.f, vv = 0.f;
       if (key < t_len) {
-        const int64_t off = base + static_cast<int64_t>(key) * D + c;
-        kv = load_f32(k + off);
-        vv = load_f32(v + off);
+        const int64_t off = base + static_cast<int64_t>(key) * D + col;
+        kv = k[off];
+        vv = v[off];
       }
-      ks[r][c] = kv;
-      vs[r][c] = vv;
+      ks[r][col] = kv;
+      vs[r][col] = vv;
     }
     __syncthreads();
 
-    const int n_keys = min(kBlockK, t_len - j0);
+    const int n_keys = min(kF32Keys, t_len - j0);
     for (int c0 = 0; c0 < n_keys; c0 += kChunk) {
       float s[kChunk];
       float cmax = -INFINITY;
@@ -140,52 +185,53 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row_valid) {
     const float inv_l = 1.f / l;
-    T* out = o + base + static_cast<int64_t>(row) * D;
+    float* out = o + base + static_cast<int64_t>(row) * D;
 #pragma unroll
-    for (int i = 0; i < D; ++i) store_f32(out + i, acc[i] * inv_l);
+    for (int i = 0; i < D; ++i) out[i] = acc[i] * inv_l;
+    if (lse != nullptr) lse[static_cast<int64_t>(bh) * t_len + row] = (m + log2f(l)) * kLn2;
   }
 }
 
-template <typename T>
-void launch_for_dim(const void* q, const void* k, const void* v, void* o, int bh,
-                    int t_len, int d, float q_scale, cudaStream_t stream) {
-  const int n_qtiles = (t_len + kBlockQ - 1) / kBlockQ;
-  const dim3 grid(static_cast<unsigned>(bh) * n_qtiles);
-  const dim3 block(kBlockQ);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(o);
-  switch (d) {
-    case 16:
-      attention_fwd_kernel<T, 16><<<grid, block, 0, stream>>>(qp, kp, vp, op, t_len, n_qtiles, q_scale);
-      break;
-    case 32:
-      attention_fwd_kernel<T, 32><<<grid, block, 0, stream>>>(qp, kp, vp, op, t_len, n_qtiles, q_scale);
-      break;
-    case 64:
-      attention_fwd_kernel<T, 64><<<grid, block, 0, stream>>>(qp, kp, vp, op, t_len, n_qtiles, q_scale);
-      break;
-    default:
-      break;  // rejected below
+template <int D>
+void launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int t_len, bool bf16_in,
+            float scale, cudaStream_t stream) {
+  const float c = scale * kLog2e;  // softmax via exp2
+  if (bf16_in) {
+    const int n_qtiles = (t_len + kTile - 1) / kTile;
+    attention_fwd_mma_kernel<D><<<static_cast<unsigned>(bh) * n_qtiles, kThreads, 0, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), lse, t_len, n_qtiles, c);
+  } else {
+    const int n_qtiles = (t_len + kF32Rows - 1) / kF32Rows;
+    attention_fwd_f32_kernel<D><<<static_cast<unsigned>(bh) * n_qtiles, kF32Rows, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), lse, t_len, n_qtiles, c);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = success).
-extern "C" int s2s_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                 int bh, int t_len, int d, int dtype, float scale,
-                                 void* stream) {
-  if (d != 16 && d != 32 && d != 64) return static_cast<int>(cudaErrorInvalidValue);
+// dtype: 0 = float32, 1 = bfloat16. lse: f32 (BH, T) output, or null to skip
+// it. bf16 rows must start 16-byte aligned (contiguous tensors do). Returns a
+// cudaError_t (0 = success).
+extern "C" int s2s_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                                 int t_len, int d, int dtype, float scale, void* stream) {
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (bh <= 0 || t_len <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const float q_scale = scale * 1.4426950408889634f;  // log2(e): softmax via exp2
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    launch_for_dim<float>(q, k, v, o, bh, t_len, d, q_scale, s);
-  } else {
-    launch_for_dim<__nv_bfloat16>(q, k, v, o, bh, t_len, d, q_scale, s);
+  float* lp = static_cast<float*>(lse);
+  switch (d) {
+    case 16:
+      launch<16>(q, k, v, o, lp, bh, t_len, dtype == 1, scale, s);
+      break;
+    case 32:
+      launch<32>(q, k, v, o, lp, bh, t_len, dtype == 1, scale, s);
+      break;
+    case 64:
+      launch<64>(q, k, v, o, lp, bh, t_len, dtype == 1, scale, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

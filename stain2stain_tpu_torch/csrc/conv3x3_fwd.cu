@@ -35,10 +35,12 @@
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
 #include "conv_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
 using namespace s2s_conv;
+using namespace s2s_mma;
 
 constexpr int kTH = 8;                 // output rows of a block
 constexpr int kTW = 16;                // output columns of a block (one m16 tile per row)

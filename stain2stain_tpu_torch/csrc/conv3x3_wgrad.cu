@@ -33,10 +33,12 @@
 // the partials), and returns cudaGetLastError().
 
 #include "conv_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
 using namespace s2s_conv;
+using namespace s2s_mma;
 
 constexpr int kTH = 8;          // output rows of a pixel tile
 constexpr int kTW = 16;         // output columns of a pixel tile (one k16 step per row)

@@ -9,9 +9,6 @@
 // FastDropout with the same seed drops the same units. The TPU kernels drew
 // their masks from the TPU's hardware PRNG (pallas_conv.py::_keep_mask), which
 // no GPU reproduces.
-//
-// Also the warp-level tensor-core primitives (ldmatrix, mma.sync m16n8k16 bf16
-// with f32 accumulators) that K2 and K5 use.
 
 #pragma once
 
@@ -75,30 +72,6 @@ __device__ __forceinline__ uint4 prologue8(uint4 raw, const Prologue& p, int b, 
     o[j] = __floats2bfloat162_rn(n[0], n[1]);
   }
   return out;
-}
-
-// ldmatrix: four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* smem) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// d += a * b on the tensor cores: a 16x16 (row), b 16x8 (col), bf16 in, f32 out.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 inline Prologue make_prologue(const float* scale, const float* shift, int silu, int dropout, uint32_t seed,

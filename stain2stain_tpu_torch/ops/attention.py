@@ -8,9 +8,12 @@ through ctypes (see the source notes for their bounds and designs):
 - ``_bwd_kernel`` → ``csrc/attention_bwd.cu`` (:func:`fused_attention_backward`).
 
 :class:`FusedAttention` is the ``torch.autograd.Function`` in place of the
-JAX ``custom_vjp``: its forward is K1-fwd and saves (q, k, v, o) as the JAX
-VJP does (``pallas_attention.py:147-149``); its backward is K1-bwd, which
-recomputes the softmax statistics rather than saving them.
+JAX ``custom_vjp``: its forward is K1-fwd, which also returns each row's
+log-sum-exp when a gradient is needed, and it saves (q, k, v, o, lse); its
+backward is K1-bwd, which takes that lse instead of recomputing it. (The JAX
+VJP saves only (q, k, v, o), ``pallas_attention.py:147-149``, because lane
+padding made the statistics 128× larger on the TPU; on the card the lse is
+an f32 (BH, T) array, 2 MiB at the 256-px training shape.)
 
 Each wrapper launches its kernel on CUDA tensors and raises on anything the
 kernel does not take; on CPU tensors it runs the kernel's plain version
@@ -38,7 +41,7 @@ def _kernel():
     lib = _build.load("attention_fwd.cu")
     fn = lib.s2s_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -52,25 +55,33 @@ def _bwd_kernel():
     return fn
 
 
-def fused_attention_reference(q, k, v, scale: float) -> torch.Tensor:
-    """Plain version of K1-fwd on (BH, T, d): f32 q·kᵀ·scale, softmax, ·v."""
+def fused_attention_reference(q, k, v, scale: float, return_lse: bool = False):
+    """Plain version of K1-fwd on (BH, T, d): f32 q·kᵀ·scale, softmax, ·v.
+
+    With ``return_lse`` also each row's log-sum-exp of the scaled logits, f32 (BH, T).
+    """
     s = torch.matmul(q.to(torch.float32) * scale, k.to(torch.float32).transpose(-1, -2))
     p = torch.softmax(s, dim=-1)
-    return torch.matmul(p, v.to(torch.float32)).to(q.dtype)
+    out = torch.matmul(p, v.to(torch.float32)).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
 
 
-def fused_attention_backward_reference(q, k, v, o, do, scale: float):
+def fused_attention_backward_reference(q, k, v, o, do, scale: float, lse=None):
     """Plain version of K1-bwd on (BH, T, d): the flash identities of
-    ``pallas_attention.py:85-105`` in f32, softmax statistics recomputed.
+    ``pallas_attention.py:85-105`` in f32; p = exp(s − lse) from the forward's
+    log-sum-exp when given, the softmax recomputed otherwise.
 
     Returns (dq, dk, dv) in the inputs' dtype.
     """
     qf, kf, vf = (x.to(torch.float32) for x in (q, k, v))
     of, dof = o.to(torch.float32), do.to(torch.float32)
     s = torch.matmul(qf * scale, kf.transpose(-1, -2))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    p = p / p.sum(dim=-1, keepdim=True)
+    if lse is not None:
+        p = torch.exp(s - lse.to(torch.float32)[..., None])
+    else:
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        p = p / p.sum(dim=-1, keepdim=True)
     dv = torch.matmul(p.transpose(-1, -2), dof)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     delta = (dof * of).sum(dim=-1, keepdim=True)
@@ -91,52 +102,74 @@ def _check(*tensors) -> None:
         raise ValueError("fused_attention's tensors must lie on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_attention needs contiguous (BH, T, d) tensors")
+    if any(t.data_ptr() % 16 for t in tensors):  # the bf16 kernels copy 16-byte chunks (cp.async)
+        raise ValueError("fused_attention needs tensors that start 16-byte aligned")
     bh, t, d = first.shape
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"fused_attention supports head dims {SUPPORTED_HEAD_DIMS}, got {d}")
-    if bh * math.ceil(t / 64) >= 2**31:
+    if bh * _tiles(t) >= 2**31:  # every kernel's grid: one block per (bh, 64 rows)
         raise ValueError(f"fused_attention grid too large for BH={bh}, T={t}")
 
 
-def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """(BH, T, d) q/k/v → (BH, T, d) softmax(q·kᵀ·scale)·v in q's dtype (K1-fwd)."""
+def _tiles(t: int) -> int:
+    return math.ceil(t / 64)
+
+
+def _check_lse(lse: torch.Tensor, q: torch.Tensor) -> None:
+    if lse.shape != q.shape[:2] or lse.dtype != torch.float32 or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous f32 (BH, T) tensor beside q, got {tuple(lse.shape)} {lse.dtype}")
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, return_lse: bool = False):
+    """(BH, T, d) q/k/v → (BH, T, d) softmax(q·kᵀ·scale)·v in q's dtype (K1-fwd).
+
+    With ``return_lse`` returns (out, lse): also each row's log-sum-exp of the
+    scaled logits, f32 (BH, T), which :func:`fused_attention_backward` takes.
+    """
     if runs_plain("fused_attention", q, k, v):
-        return fused_attention_reference(q, k, v, scale)
+        return fused_attention_reference(q, k, v, scale, return_lse)
     _check(q, k, v)
     bh, t, d = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty((bh, t), dtype=torch.float32, device=q.device) if return_lse else None
     fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
             bh, t, d, _DTYPE_CODES[q.dtype], float(scale), stream,
         )
     if err != 0:
         raise RuntimeError(f"attention_fwd kernel launch failed: cudaError {err}")
     fused_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 fused_attention.launches = 0
 
 
-def fused_attention_backward(q, k, v, o, do, scale: float):
-    """(BH, T, d) q, k, v, o, do → (dq, dk, dv) in the inputs' dtype (K1-bwd)."""
-    if runs_plain("fused_attention_backward", q, k, v, o, do):
-        return fused_attention_backward_reference(q, k, v, o, do, scale)
+def fused_attention_backward(q, k, v, o, do, scale: float, lse=None):
+    """(BH, T, d) q, k, v, o, do → (dq, dk, dv) in the inputs' dtype (K1-bwd).
+
+    ``lse``: the forward's f32 (BH, T) log-sum-exp (``fused_attention(...,
+    return_lse=True)``); without it the kernel recomputes it.
+    """
+    if runs_plain("fused_attention_backward", q, k, v, o, do, *([] if lse is None else [lse])):
+        return fused_attention_backward_reference(q, k, v, o, do, scale, lse)
     _check(q, k, v, o, do)
+    if lse is not None:
+        _check_lse(lse, q)
     bh, t, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # per-row log-sum-exp and rowsum(do∘o): the kernel's only scratch
-    lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    # (lse·log2 e, rowsum(do∘o)) per row, rows padded to a multiple of 64: the kernel's only scratch
+    stats = torch.empty((bh, _tiles(t) * 64, 2), dtype=torch.float32, device=q.device)
     fn = _bwd_kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
             bh, t, d, _DTYPE_CODES[q.dtype], float(scale), stream,
         )
     if err != 0:
@@ -153,15 +186,18 @@ class FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float):
-        out = fused_attention(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, out)
+        if any(ctx.needs_input_grad[:3]):
+            out, lse = fused_attention(q, k, v, scale, return_lse=True)
+        else:
+            out, lse = fused_attention(q, k, v, scale), None
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = fused_attention_backward(q, k, v, out, do.contiguous(), ctx.scale)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = fused_attention_backward(q, k, v, out, do.contiguous(), ctx.scale, lse)
         return dq, dk, dv, None
 
 

@@ -243,6 +243,83 @@ def test_fused_attention_backward_reference_is_the_vjp_of_the_plain_forward():
     assert all(g.dtype == torch.bfloat16 for g in bf)
 
 
+@pytest.mark.parametrize("bh,t,d,peak", [(6, 37, 16, 1.0), (2, 70, 32, 1.0), (3, 70, 64, 8.0)])
+def test_fused_attention_lse_matches_jax_logsumexp(bh, t, d, peak):
+    """The plain K1-fwd's optional row log-sum-exp against ``jax.nn.logsumexp``
+    of the f32 logits as the JAX kernel forms them (``_fwd_kernel``: q·scale
+    dotted with k); ``peak`` scales q, so the rows' softmax is near one-hot."""
+    rng = np.random.default_rng(23)
+    q, k, v = (rng.standard_normal((bh, t, d)).astype(np.float32) for _ in range(3))
+    q *= peak
+    scale = 1.0 / math.sqrt(d)
+    with jax.default_matmul_precision("highest"):
+        logits = jax.lax.dot_general(jnp.asarray(q) * scale, jnp.asarray(k), (((2,), (2,)), ((0,), (0,))))
+        ref = np.asarray(jax.nn.logsumexp(logits, axis=-1))
+    out, lse = tattn.fused_attention(*map(torch.from_numpy, (q, k, v)), scale, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (bh, t)
+    np.testing.assert_allclose(lse.numpy(), ref, atol=TOL, rtol=TOL)
+    np.testing.assert_array_equal(out.numpy(), tattn.fused_attention(*map(torch.from_numpy, (q, k, v)), scale).numpy())
+
+
+@pytest.mark.parametrize("b,t,h,d,peak", [(1, 37, 2, 32, 1.0), (2, 70, 1, 16, 1.0), (1, 37, 2, 32, 8.0),
+                                          (2, 70, 1, 16, 8.0)])
+def test_attention_backward_through_the_saved_lse_matches_jax_vjp(monkeypatch, b, t, h, d, peak):
+    """``attention`` → FusedAttention: the forward saves its lse and the
+    backward's p = exp(s − lse) comes from it, against ``jax.vjp`` of the JAX
+    package's plain attention; ragged T, and peaked logits (q × 8), where the
+    online softmax's rescale matters on the card. The gradients' tolerance is
+    TOL × peak: f32 rounding in either package grows with the logits, which
+    the peak multiplies (at q × 8 JAX's own f32 dk lies up to 4e-5 from an f64
+    evaluation of the same formulas, the port's within 1.5e-5)."""
+    rng = np.random.default_rng(24)
+    q, k, v, do = (rng.standard_normal((b, t, h, d)).astype(np.float32) for _ in range(4))
+    q *= peak
+    with jax.default_matmul_precision("highest"):
+        ref_out, vjp = jax.vjp(lambda *a: j_attention(*a, d, use_fused=False), *map(jnp.asarray, (q, k, v)))
+        ref_grads = vjp(jnp.asarray(do))
+    seen = []
+    plain = tattn.fused_attention_backward_reference
+
+    def spy(*args):
+        seen.append(args[-1])
+        return plain(*args)
+
+    monkeypatch.setattr(tattn, "fused_attention_backward_reference", spy)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = tattn.attention(*leaves, d)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    assert len(seen) == 1 and seen[0] is not None and seen[0].shape == (b * h, t)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out), atol=TOL, rtol=TOL)
+    for got, ref in zip(grads, ref_grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL * peak, rtol=TOL)
+
+
+@pytest.mark.parametrize("peak", [1.0, 8.0])
+def test_fused_attention_backward_with_and_without_lse_agree(peak):
+    """Both routes of K1-bwd's plain version on CPU tensors: the forward's lse
+    given, or the softmax recomputed."""
+    rng = np.random.default_rng(25)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((4, 45, 32)).astype(np.float32)) for _ in range(4))
+    q = q * peak
+    out, lse = tattn.fused_attention(q, k, v, 0.2, return_lse=True)
+    with_lse = tattn.fused_attention_backward(q, k, v, out, do, 0.2, lse)
+    without = tattn.fused_attention_backward(q, k, v, out, do, 0.2)
+    for a, b in zip(with_lse, without):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=TOL, rtol=TOL)
+
+
+def test_fused_attention_rejects_a_misshapen_lse_and_misaligned_tensors():
+    q = torch.zeros(4, 10, 16)
+    with pytest.raises(ValueError, match="lse"):
+        tattn._check_lse(torch.zeros(4, 11), q)
+    with pytest.raises(ValueError, match="lse"):
+        tattn._check_lse(torch.zeros(4, 10, dtype=torch.bfloat16), q)
+    tattn._check_lse(torch.zeros(4, 10), q)
+    shifted = torch.zeros(4 * 10 * 16 + 1)[1:].view(4, 10, 16)  # starts 4 bytes past an aligned address
+    with pytest.raises(ValueError, match="aligned"):
+        tattn._check(shifted, shifted, shifted)
+
+
 @pytest.mark.parametrize("variant", ["plain", "silu", "film_silu"])
 @pytest.mark.parametrize("channels,groups", [(32, 8), (48, 16)])
 def test_group_norm_gradients_match_jax_vjp(variant, channels, groups):
