@@ -8,7 +8,8 @@ Phases (any failure ends the script with a non-zero exit and no result line):
 1. Device: the card's name and power limit, the torch and CUDA versions.
 2. Build: every CUDA kernel of the port from ``stain2stain_tpu_torch/csrc``
    with ``nvcc`` (one process per source, all at once), with ptxas' report.
-   ptxas must report no spills for the bf16 (tensor-core) attention kernels.
+   ptxas must report no spills for the tensor-core kernels: the bf16
+   attention kernels and the wgmma kernels of K2/K3 and K5.
 3. K1-fwd (``csrc/attention_fwd.cu``) against its plain PyTorch version on
    the card, output and row log-sum-exp, with the stated tolerances: the
    serving shapes (f32 and bf16), the training shape (bf16, with the lse that
@@ -45,13 +46,17 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    CPU: loss and every parameter gradient.
 9. K2–K5 (``csrc/conv3x3_fwd.cu`` as K2 and K3, ``csrc/prologue_grad.cu``,
    ``csrc/conv3x3_wgrad.cu``) against their plain versions on the card at the
-   flagship's first-level shape (B 32, 256², C = D = 128) and its largest-C
-   shape (B 32, 32², C 1024 → D 512), bf16, affine + SiLU, dropout 0.1, with
-   the stated tolerances; times of each kernel, its plain version and the
-   cuDNN call for the same function (a yardstick only, never used by the
-   port) beside the bound computed from the shape; K4 and K5 run twice and
-   must agree bit for bit; K2 with an identity centre tap must reproduce
-   ``hash_mask``'s dropout mask bit for bit.
+   flagship's first-level shape (B 32, 256², C = D = 128), its largest-C
+   shape (B 32, 32², C 1024 → D 512) and a ragged one (B 3, H 20, W 48,
+   C 384 → D 256: H past the last whole row tile, the level-0 skip-concat
+   width), bf16, affine + SiLU, dropout 0.1, with the stated tolerances;
+   times of each kernel, its plain version and the cuDNN call for the same
+   function (a yardstick only, never used by the port) beside the bound
+   computed from the shape; K4 and K5 run twice and must agree bit for bit;
+   K2 with an identity centre tap must reproduce ``hash_mask``'s dropout mask
+   bit for bit. Then the sweep: K2, K3 and K5 against cuDNN at each distinct
+   conv shape of the fused flagship (recorded from one net forward), with
+   its launches per train step and the launch-weighted totals per step.
 10. The training path of phase 7 again with ``+model.net.fused_conv=true``
     on the same synthetic data: K2 must have launched 44 times per net
     forward (22 ResBlocks × 2 convs) and K3, K4, K5 44 times per backward
@@ -169,20 +174,35 @@ def attention_bound(bh: int, t: int, d: int, dtype: str, exp_per_s: float, lse: 
     }
 
 
-def tensor_core_attention_spills(build_logs: dict) -> dict:
-    """Spill-store bytes of every bf16 (tensor-core) kernel of K1-fwd and K1-bwd,
-    by mangled name, from ptxas' report (``-Xptxas -v``)."""
+# the tensor-core kernels ptxas must compile without spills: the bf16 attention
+# kernels of K1-fwd and K1-bwd, and the wgmma kernels of K2/K3 and K5
+SPILL_CHECKED = {
+    "attention_fwd.cu": ("mma_kernel",),
+    "attention_bwd.cu": ("mma_kernel", "prep"),
+    "conv3x3_fwd.cu": ("conv3x3_fwd_kernel",),
+    "conv3x3_wgrad.cu": ("conv3x3_wgrad_kernel",),
+}
+
+
+def tensor_core_spills(build_logs: dict) -> dict:
+    """Spill-store bytes of every tensor-core kernel of ``SPILL_CHECKED`` (the
+    attention ones in their bf16 instances), by source and mangled name, from
+    ptxas' report (``-Xptxas -v``)."""
     import re
 
-    spills, name = {}, None
-    for src in ("attention_fwd.cu", "attention_bwd.cu"):
+    spills = {}
+    for src, keys in SPILL_CHECKED.items():
+        name = None
         for line in build_logs.get(src, "").splitlines():
             found = re.search(r"entry function '(\S+)'", line)
             if found:
                 name = found.group(1)
             found = re.search(r"(\d+) bytes spill stores", line)
-            if found and name and ("mma_kernel" in name or ("prep" in name and "bfloat16" in name)):
-                spills[name] = int(found.group(1))
+            if not (found and name and any(k in name for k in keys)):
+                continue
+            if src.startswith("attention") and "mma_kernel" not in name and "bfloat16" not in name:
+                continue  # the f32 prep pass: SIMT, not checked
+            spills[f"{src}:{name}"] = int(found.group(1))
     return spills
 
 
@@ -377,6 +397,7 @@ def phase_conv_kernels(exp_per_s: float) -> dict:
     cases = [
         (32, 256, 256, 128, 128, "flagship first level (B 32, 256 px): the main path's most pixels"),
         (32, 32, 32, 1024, 512, "flagship lowest level (B 32, 32 px): the largest C"),
+        (3, 20, 48, 384, 256, "ragged: H 20 (not a multiple of the 8- or 16-row tiles), C 384 (level-0 skip concat)"),
     ]
     rows: dict[str, list] = {"K2": [], "K3": [], "K4": [], "K5": []}
     masks = []
@@ -477,6 +498,91 @@ def phase_conv_kernels(exp_per_s: float) -> dict:
     if bad:
         raise AssertionError(f"K2-K5 disagree with their plain versions or the mask: {bad}")
     return {"rows": rows, "masks": masks}
+
+
+def flagship_fused_convs() -> dict:
+    """{(H, W, C, D): K2 launches} of one net forward of the fused flagship at
+    256 px (``+model.net.fused_conv=true``), recorded at the wrapper."""
+    import torch
+
+    from stain2stain_tpu_torch.config import compose, instantiate
+    from stain2stain_tpu_torch.ops import conv
+
+    cfg = compose(REPO / "configs", "train.yaml", [FUSED_OVERRIDE])
+    torch.manual_seed(0)
+    net = instantiate(cfg.model.net, device="cuda").eval()
+    net.dtype = torch.bfloat16  # what bf16-mixed sets: the gate wants bf16 compute
+    shapes: dict = {}
+    original = conv._launch_conv
+
+    def record(x, wk, *args):  # wk (3, 3, D, C)
+        key = (x.shape[1], x.shape[2], x.shape[3], wk.shape[2])
+        shapes[key] = shapes.get(key, 0) + 1
+        return original(x, wk, *args)
+
+    conv._launch_conv = record  # the K2 wrapper calls the module's global
+    try:
+        with torch.no_grad():
+            net(torch.full((2,), 0.5, device="cuda"), torch.zeros(2, 256, 256, 3, device="cuda"))
+    finally:
+        conv._launch_conv = original
+    del net
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def phase_conv_sweep(exp_per_s: float, batch: int = 32) -> dict:
+    """K2, K3 and K5 against cuDNN at every distinct conv shape of the fused
+    flagship (batch 32, 256 px), CUDA events only, with each shape's launches
+    per train step (one forward, one backward) and the launch-weighted totals
+    per step: the "launches x gap" that orders the kernel queue."""
+    import torch
+    import torch.nn.functional as F
+
+    from stain2stain_tpu_torch.ops import conv
+
+    torch.backends.cudnn.allow_tf32 = False
+    shapes = flagship_fused_convs()
+    if sum(shapes.values()) != FLAGSHIP_FUSED_CONVS:
+        raise AssertionError(f"the fused flagship runs {sum(shapes.values())} fused convs, not {FLAGSHIP_FUSED_CONVS}")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    bf16 = torch.bfloat16
+    keys = ("K2", "K3", "K5", "cudnn_K2", "cudnn_K3", "cudnn_K5", "bound_K2", "bound_K3", "bound_K5")
+    totals = dict.fromkeys(keys, 0.0)
+    rows = []
+    for (h, w, c, d), n in sorted(shapes.items()):
+        def randn(*shape):
+            return torch.randn(*shape, device="cuda", generator=gen)
+
+        x = randn(batch, h, w, c).to(bf16)
+        wt = (randn(3, 3, c, d) / (3.0 * math.sqrt(c))).to(bf16)
+        bias = 0.1 * randn(d)
+        dy = randn(batch, h, w, d).to(bf16)
+        kw = dict(scale=1.0 + 0.2 * randn(batch, c), shift=0.2 * randn(batch, c), act="silu",
+                  dropout_rate=0.1, seed=4321)
+        x_nchw, dy_nchw = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)  # channels-last memory
+        w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        wi_oihw = torch.flip(wt, dims=(0, 1)).permute(2, 3, 0, 1).contiguous(memory_format=torch.channels_last)
+        bias16 = bias.to(bf16)
+        row = dict(shape=[batch, h, w, c, d], launches_per_step=n,
+                   K2=cuda_ms(lambda: conv.fused_conv3x3(x, wt, bias, **kw), repeats=5),
+                   K3=cuda_ms(lambda: conv.conv3x3_input_grad(dy, wt), repeats=5),
+                   K5=cuda_ms(lambda: conv.conv3x3_weight_grad(x, dy, **kw), repeats=5),
+                   cudnn_K2=cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, bias16, padding=1), repeats=5),
+                   cudnn_K3=cuda_ms(lambda: F.conv2d(dy_nchw, wi_oihw, padding=1), repeats=5),
+                   cudnn_K5=cuda_ms(lambda: torch.nn.grad.conv2d_weight(x_nchw, (d, c, 3, 3), dy_nchw, padding=1),
+                                    repeats=5),
+                   **{f"bound_{k}": conv_bound(k, batch, h, w, c, d, exp_per_s)["bound_ms"] for k in ("K2", "K3", "K5")})
+        for k in keys:
+            totals[k] += n * row[k]
+        log("conv-sweep " + json.dumps(row))
+        rows.append(row)
+        del x, wt, bias, dy, kw, x_nchw, dy_nchw, w_oihw, wi_oihw, bias16
+        torch.cuda.empty_cache()
+    total = dict(batch=batch, convs_per_step=sum(shapes.values()), shapes=len(shapes),
+                 **{f"{k}_ms_per_step": v for k, v in totals.items()})
+    log("conv-sweep-total " + json.dumps(total))
+    return {"rows": rows, "total": total}
 
 
 def _test_image(h: int, w: int, seed: int):
@@ -1077,10 +1183,11 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers", "spill")) or "error" in line.lower():
                 log(f"ptxas {src}: {line.strip()}")
     log(f"build: {build_s:.3f} s for {len(_build.SOURCES)} source(s)")
-    spills = tensor_core_attention_spills(build_logs)
+    spills = tensor_core_spills(build_logs)
     log("ptxas-spills " + json.dumps(spills))
-    if not spills or any(spills.values()):
-        raise AssertionError(f"ptxas spilled in a tensor-core attention kernel, or reported none: {spills}")
+    missing = [src for src in SPILL_CHECKED if not any(k.startswith(src + ":") for k in spills)]
+    if missing or any(spills.values()):
+        raise AssertionError(f"ptxas spilled in a tensor-core kernel, or reported none for {missing}: {spills}")
 
     # 3-4. K1-fwd and K1-bwd against their plain versions
     k1 = phase_kernels(exp_per_s)
@@ -1111,6 +1218,7 @@ def main() -> int:
         # 9. K2-K5 against their plain versions
         torch.cuda.empty_cache()
         convs = phase_conv_kernels(exp_per_s)
+        phase_conv_sweep(exp_per_s)
 
         # 10. the training path with fused_conv=true, on the same synthetic data
         torch.cuda.empty_cache()

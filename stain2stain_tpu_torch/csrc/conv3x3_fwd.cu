@@ -14,151 +14,252 @@
 // 989 TFLOP/s) against 2*B*H*W*(C + D) bytes (0.32 ms at 3.35 TB/s): the
 // products bound it at every flagship shape.
 //
-// Design (first, simple and right; no wgmma or TMA yet). An implicit GEMM with
-// M = output pixels, N = D, K = 9*C:
-//   * a block owns 8 rows x 16 columns of one image (M = 128) and 128 output
-//     channels (N), 8 warps of 32 pixels x 64 channels each;
-//   * per step of 32 input channels it stages the (8+2) x (16+2) halo of x into
-//     shared memory through the prologue (affine, SiLU, hash mask, bf16), so
-//     the normalized tensor never reaches device memory and each element's
-//     prologue runs 1.4 times per 128 output channels, not 9 times; and the 9
-//     taps' weights (9 x 128 x 32 bf16);
-//   * the 9 taps then read shifted windows of the one halo: ldmatrix x4 into
-//     mma.sync.m16n8k16 bf16 with f32 accumulators in registers;
-//   * shared rows are padded to 80 bytes, so the 8 rows of an ldmatrix phase
-//     fall in 8 distinct 16-byte bank groups.
-// Staging and products do not overlap within a block (no cp.async pipeline);
-// two blocks per SM overlap each other. C and D are multiples of 128 and W of
-// 16 (ops/conv.py::supported); a ragged last row tile is masked.
+// Design. An implicit GEMM with M = output pixels, N = D, K = 9*C, on wgmma:
+//   * a persistent block (one per SM, two warpgroups) walks work items of
+//     16 x 16 output pixels (M = 256) and 128 output channels, so every
+//     staged weight feeds 256 pixels (2.4 GB of weights staged per call at
+//     the first level; 512-pixel items would halve that, but their
+//     accumulators do not fit two warpgroups);
+//   * a K step is (32 input channels, one column shift dx): the 18 x 16
+//     window of n shifted by dx, exactly 16 pixels wide, so each row tap dy is
+//     a whole number of 8-row swizzle atoms; and the weights of the three taps
+//     (dy, dx), 3 x 128 x 32. Both are K-major with 64-byte rows, swizzled
+//     (wgmma_common.cuh); each warpgroup runs 2 x m64n128k16 per tap and k16,
+//     both operands by descriptor, 128 f32 accumulators a thread;
+//   * every copy is a TMA tile copy on an mbarrier, in rings three steps deep:
+//     step q + 2's weights (and, for K3, its window of dy, raw, straight into
+//     its final layout, zero outside the image) are requested while step q's
+//     products run, by one thread, with no thread work per byte;
+//   * K2: the raw 18 x 18 halo of a channel step arrives by TMA two channel
+//     steps ahead; the prologue (affine, SiLU, hash mask, bf16) runs on it
+//     once per element (x 1.27 for the halo, not x 3.4 as one pass per
+//     window would) and stores each result into the dx windows that hold it,
+//     a third of the halo after the second tap's products of each step, as
+//     straight-line code of the prologue's Kind (conv_common.cuh), so it
+//     overlaps the tensor cores; six window slots hold the channel step in use
+//     and the next. It still costs about as much as the products (K2 takes
+//     about twice K3's time at the flagship's shapes): overlapping it fully
+//     would take warps of their own for it;
+//   * one barrier per step; the steps of consecutive work items run back to
+//     back, so one item's epilogue overlaps the next item's copies.
+// C is a multiple of 32 and D of 128; W a multiple of 16 (ops/conv.py::supported:
+// C and D multiples of 128); a ragged last row tile is masked (zero-filled by
+// TMA, its outputs not stored).
 //
 // Launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
 #include "conv_common.cuh"
-#include "mma_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
 using namespace s2s_conv;
-using namespace s2s_mma;
+using namespace s2s_wgmma;
 
-constexpr int kTH = 8;                 // output rows of a block
-constexpr int kTW = 16;                // output columns of a block (one m16 tile per row)
-constexpr int kHH = kTH + 2;           // halo rows
+constexpr int kTH = 16;                // output rows of a work item
+constexpr int kTW = 16;                // output columns of a work item (one m64 = 4 rows)
+constexpr int kHH = kTH + 2;           // window and halo rows
 constexpr int kHW = kTW + 2;           // halo columns
-constexpr int kBN = 128;               // output channels of a block
-constexpr int kBK = 32;                // input channels per step
-constexpr int kLd = kBK + 8;           // shared row pitch in bf16 (80 bytes)
-constexpr int kThreads = 256;
-constexpr int kAElems = kHH * kHW * kLd;
-constexpr int kBElems = 9 * kBN * kLd;
-constexpr int kSmemBytes = (kAElems + kBElems) * 2;  // 106,560 bytes
+constexpr int kBN = 128;               // output channels of a work item
+constexpr int kBK = 32;                // input channels of a K step (one 64-byte row)
+constexpr int kThreads = 256;          // two warpgroups of 8 rows x 16 pixels each
+constexpr int kABytes = kHH * kTW * 64;        // a window: 288 rows of 64 bytes, 36 atoms
+constexpr int kTapBytes = kBN * 64;            // one tap's weights: 128 rows, 16 atoms
+constexpr int kBBytes = 3 * kTapBytes;         // the three taps (dy, dx) of a step
+constexpr int kBSlots = 3;                     // weights ring: steps q, q + 1 in use, q + 2 landing
+// windows ring: K3 as the weights; K2 two groups of three (the dx of one
+// channel step in use, the next channel step's being normalized into place)
+template <bool kPrologue>
+constexpr int kASlots = kPrologue ? 6 : 3;
+constexpr int kHaloBytes = kHH * kHW * 64;     // K2: a raw halo of 32 channels, plain [pixel][64 B]
+template <bool kPrologue>
+constexpr int kSmemBytes = kASlots<kPrologue> * kABytes + kBSlots * kBBytes + (kPrologue ? 2 * kHaloBytes : 0) +
+                           5 * 8 + 1024;  // 226,856 / 130,088
+constexpr int kSubRows = kHH / 3;              // halo rows a K2 step normalizes (one third)
+constexpr int kSubChunks = kSubRows * kHW * (kBK / 8);  // 432 16-byte chunks
+constexpr int kSubIters = (kSubChunks + kThreads - 1) / kThreads;  // 2 a thread
 
-__global__ void __launch_bounds__(kThreads, 2)
-conv3x3_fwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                   const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-                   int H, int W, int C, int D, int tiles_h, int tiles_w, Prologue pro) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* as = smem;             // [kHH * kHW][kLd]: the normalized halo
-  __nv_bfloat16* bs = smem + kAElems;   // [9 * kBN][kLd]: weights, input channels contiguous
+struct Step {
+  int b, h0, w0, n0;  // the work item
+  int kb, dx;         // channels kb*32.., column shift dx
+};
 
+__device__ __forceinline__ Step step_of(int q, int steps, int tiles_h, int tiles_w, int n_tiles) {
+  const int work = blockIdx.x + (q / steps) * gridDim.x;
+  const int s = q - (q / steps) * steps;
+  const int pt = work / n_tiles;
   const int tiles = tiles_h * tiles_w;
-  const int b = blockIdx.x / tiles;
-  const int tile = blockIdx.x - b * tiles;
-  const int h0 = (tile / tiles_w) * kTH;
-  const int w0 = (tile % tiles_w) * kTW;
-  const int n0 = blockIdx.y * kBN;
+  const int b = pt / tiles;
+  const int t = pt - b * tiles;
+  return {b, (t / tiles_w) * kTH, (t % tiles_w) * kTW, (work - pt * n_tiles) * kBN, s / 3, s - 3 * (s / 3)};
+}
+
+__device__ __forceinline__ bool in_image(int h, int wc, int H, int W) { return h >= 0 && h < H && wc >= 0 && wc < W; }
+
+template <bool kPrologue>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_fwd_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap halo_map,
+                   const __grid_constant__ CUtensorMap w_map, const float* __restrict__ bias,
+                   __nv_bfloat16* __restrict__ y, int H, int W, int C, int D, int tiles_h, int tiles_w, int n_items,
+                   Prologue pro) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* abuf = align1024(smem_raw);                  // [kASlots][288 rows][64 B], swizzled
+  unsigned char* bbuf = abuf + kASlots<kPrologue> * kABytes;  // [3][3 taps][128 rows][64 B], swizzled
+  unsigned char* hbuf = bbuf + kBSlots * kBBytes;             // K2: [2][324 pixels][64 B]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(hbuf + (kPrologue ? 2 * kHaloBytes : 0));  // [3]: step q on bars[q % 3]
+  uint64_t* hbars = bars + kBSlots;                                                       // [2]: halo g on hbars[g % 2]
+
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int warp_m = warp & 3;   // tile rows 2*warp_m and 2*warp_m + 1
-  const int warp_n = warp >> 2;  // output channels n0 + 64*warp_n ... + 63
-  const int lr = lane & 7;       // ldmatrix: row within a matrix
-  const int lj = lane >> 3;      // ldmatrix: which of the four matrices
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  for (int k0 = 0; k0 < C; k0 += kBK) {
-    __syncthreads();  // the previous step's tiles are consumed
-    for (int i = tid; i < kHH * kHW * (kBK / 8); i += kThreads) {
-      const int pix = i >> 2;  // kBK / 8 == 4 vectors of 8 channels per pixel
-      const int v = i & 3;
-      const int hr = pix / kHW;
-      const int hc = pix - hr * kHW;
-      const int h = h0 + hr - 1;
-      const int wc = w0 + hc - 1;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (h >= 0 && h < H && wc >= 0 && wc < W) {
-        const int c = k0 + 8 * v;
-        const uint32_t p = static_cast<uint32_t>((b * H + h) * W + wc);
-        val = __ldg(reinterpret_cast<const uint4*>(x + static_cast<int64_t>(p) * C + c));
-        val = prologue8(val, pro, b, c, C, p);
-      }
-      *reinterpret_cast<uint4*>(as + pix * kLd + 8 * v) = val;
+  const int wg = tid >> 7;  // warpgroup: output rows 8*wg .. 8*wg + 7
+  const int n_tiles = D / kBN;
+  const int steps = 3 * (C / kBK);  // a multiple of 3: a channel step's dx never straddles items
+  const int my_items = (n_items - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) - 1) /
+                       static_cast<int>(gridDim.x);
+  const int total = my_items * steps;
+  auto a_slot = [&](int q) { return abuf + (kPrologue ? 3 * ((q / 3) & 1) + q % 3 : q % 3) * kABytes; };
+  auto b_slot = [&](int q) { return bbuf + (q % kBSlots) * kBBytes; };
+  // Step q's three taps' weights (dy = 0..2 at its dx; 128 output channels x
+  // 32 input channels each) and, for K3, its window of dy (rows -1 .. 16,
+  // columns dx - 1 .., zero outside the image), by TMA on bars[q % 3].
+  auto copies = [&](int q) {
+    if (tid == 0 && q < total) {
+      const Step st = step_of(q, steps, tiles_h, tiles_w, n_tiles);
+      uint64_t* bar = bars + q % kBSlots;
+      mbar_expect_tx(bar, kBBytes + (kPrologue ? 0 : kABytes));
+      tma_load_4d(b_slot(q), &w_map, st.kb * kBK, st.n0, st.dx, 0, bar);
+      if (!kPrologue) tma_load_4d(a_slot(q), &x_map, st.kb * kBK, st.w0 + st.dx - 1, st.h0 - 1, st.b, bar);
     }
-    for (int i = tid; i < 9 * kBN * (kBK / 8); i += kThreads) {
-      const int row = i >> 2;  // tap * kBN + n
-      const int v = i & 3;
-      const int tap = row / kBN;
-      const int n = row - tap * kBN;
-      const uint4 val = __ldg(reinterpret_cast<const uint4*>(
-          w + (static_cast<int64_t>(tap) * D + n0 + n) * C + k0 + 8 * v));
-      *reinterpret_cast<uint4*>(bs + row * kLd + 8 * v) = val;
+  };
+  // K2: the raw halo (rows -1 .. 16, columns -1 .. 16, zero outside the
+  // image) of channel step g (steps 3g .. 3g + 2) into halo buffer g % 2
+  auto load_halo = [&](int g) {
+    if (kPrologue && tid == 0 && 3 * g < total) {
+      const Step st = step_of(3 * g, steps, tiles_h, tiles_w, n_tiles);
+      mbar_expect_tx(hbars + g % 2, kHaloBytes);
+      tma_load_4d(hbuf + (g % 2) * kHaloBytes, &halo_map, st.kb * kBK, st.w0 - 1, st.h0 - 1, st.b, hbars + g % 2);
     }
-    __syncthreads();
+  };
+  if (tid == 0) {
+    for (int k = 0; k < kBSlots + 2; ++k) mbar_init(bars + k, 1);
+    fence_proxy_async();
+  }
+  __syncthreads();
 
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3;
-      const int dx = tap - 3 * dy;
+  // K2: the halo rows [6r, 6r + 6) of channel step g, normalized once and
+  // stored into the three dx windows that hold them. A thread's chunks all
+  // hold the channels 8 * (tid % 4) of the step (kThreads % 4 == 0).
+  auto prologue_part = [&](int g, int r) {
+    if constexpr (kPrologue) {
+      if (3 * g >= total) return;
+      if (r == 0) mbar_wait(hbars + g % 2, (g / 2) & 1);
+      const Step st = step_of(3 * g, steps, tiles_h, tiles_w, n_tiles);
+      const unsigned char* halo = hbuf + (g % 2) * kHaloBytes;
+      const int c = st.kb * kBK + 8 * (tid & 3);
+      float sc[8], sh[8];
+      channel_factors(pro, st.b, c, C, sc, sh);
+      with_kind(pro, [&](auto kind) {  // straight-line code: the chunks' loads first, then their math
+        uint4 raw[kSubIters];
 #pragma unroll
-      for (int kk = 0; kk < kBK; kk += 16) {
-        // A (pixels x channels): matrices {rows 0-7, 8-15} x {k 0-7, 8-15}
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int hr = 2 * warp_m + mt + dy;
-          const int col = lr + ((lj & 1) << 3) + dx;
-          ldsm_x4(a[mt], as + (hr * kHW + col) * kLd + kk + ((lj >> 1) << 3));
+        for (int k = 0; k < kSubIters; ++k) {
+          const int i = kSubChunks * r + tid + k * kThreads;
+          if (i < kSubChunks * (r + 1)) raw[k] = *reinterpret_cast<const uint4*>(halo + i * 16);
         }
 #pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          // B (k x n) from [n][k] rows: matrices {n 0-7: k lo, k hi}, {n 8-15: k lo, k hi}
-          const int n = warp_n * 64 + np * 16 + lr + ((lj >> 1) << 3);
-          uint32_t bf[4];
-          ldsm_x4(bf, bs + (tap * kBN + n) * kLd + kk + ((lj & 1) << 3));
+        for (int k = 0; k < kSubIters; ++k) {
+          const int i = kSubChunks * r + tid + k * kThreads;
+          if (i >= kSubChunks * (r + 1)) continue;
+          const int pix = i >> 2;  // halo pixel hr * 18 + hc
+          const int hr = pix / kHW;
+          const int hc = pix - hr * kHW;
+          const int h = st.h0 + hr - 1;
+          const int wc = st.w0 + hc - 1;
+          uint4 val = make_uint4(0u, 0u, 0u, 0u);  // SAME padding applies to n
+          if (in_image(h, wc, H, W)) {
+            const uint32_t p = static_cast<uint32_t>((st.b * H + h) * W + wc);
+            val = prologue8(kind, raw[k], pro, sc, sh, p * static_cast<uint32_t>(C) + static_cast<uint32_t>(c));
+          }
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            mma_bf16(acc[mt][2 * np], a[mt], bf[0], bf[1]);
-            mma_bf16(acc[mt][2 * np + 1], a[mt], bf[2], bf[3]);
+          for (int dx = 0; dx < 3; ++dx) {
+            const int col = hc - dx;  // the window for dx holds halo columns dx .. dx + 15
+            if (col >= 0 && col < kTW) {
+              *reinterpret_cast<uint4*>(a_slot(3 * g + dx) + swz64(hr * kTW + col, i & 3)) = val;
+            }
           }
         }
-      }
+      });
     }
-  }
+  };
 
-  // accumulator fragment: (pixel g, channels 2t, 2t+1) and (pixel g + 8, ...)
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  // prime the rings: steps 0 and 1 in flight; K2: channel step 0 normalized
+  // whole, channel step 1's halo in flight
+  copies(0);
+  copies(1);
+  load_halo(0);
+  load_halo(1);
+  for (int r = 0; r < 3; ++r) prologue_part(0, r);
+
+  float acc[2][64];
+  for (int item = 0; item < my_items; ++item) {
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int h = h0 + 2 * warp_m + mt;
-    if (h >= H) continue;
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int64_t p = static_cast<int64_t>(b * H + h) * W + w0 + g + 8 * half;
+      for (int e = 0; e < 64; ++e) acc[mi][e] = 0.f;
+    for (int s = 0; s < steps; ++s) {
+      const int q = item * steps + s;
+      unsigned char* as = a_slot(q);
+      unsigned char* bs = b_slot(q);
+      mbar_wait(bars + q % kBSlots, (q / kBSlots) & 1);  // step q's copies have landed
+      fence_proxy_async();  // (K2: this thread's windows, stored by the generic proxy)
+      __syncthreads();  // step q's operands are in place, everyone's; step q - 1's products are done
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int n = n0 + warp_n * 64 + nt * 8 + 2 * t;
-        const float v0 = acc[mt][nt][2 * half] + __ldg(bias + n);
-        const float v1 = acc[mt][nt][2 * half + 1] + __ldg(bias + n + 1);
-        *reinterpret_cast<__nv_bfloat162*>(y + p * D + n) = __floats2bfloat162_rn(v0, v1);
+      for (int mi = 0; mi < 2; ++mi) fence_regs(acc[mi]);  // the zeroing stays before the products
+      wgmma_fence();
+      // the products of tap dy, then a share of the staging work while they run
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          const uint64_t db = desc_sw64(bs + dy * kTapBytes + kk * 32);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            wgmma_m64n128k16<0, 0>(acc[mi], desc_sw64(as + (8 * wg + 4 * mi + dy) * (kTW * 64) + kk * 32), db);
+          }
+        }
+        if (dy == 0) {
+          copies(q + 2);  // into step q - 1's slots
+          if (q % 3 == 0) load_halo(q / 3 + 2);  // into the halo buffer channel step q/3 used
+        }
+        // a third of channel step q/3 + 1, into its windows (step q - 1's group's)
+        if (dy == 1) prologue_part(q / 3 + 1, q % 3);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) fence_regs(acc[mi]);
+
+    // fragment of warp wl: pixel row 8*wg + 4*mi + wl, column gr (+8); channels 8i + 2t, +1
+    const Step st = step_of(item * steps, steps, tiles_h, tiles_w, n_tiles);
+    const int lane = tid & 31;
+    const int wl = (tid >> 5) & 3;
+    const int gr = lane >> 2;
+    const int t = lane & 3;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int h = st.h0 + 8 * wg + 4 * mi + wl;
+      if (h >= H) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int64_t p = static_cast<int64_t>(st.b * H + h) * W + st.w0 + gr + 8 * half;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int n = st.n0 + 8 * i + 2 * t;
+          const float v0 = acc[mi][4 * i + 2 * half] + __ldg(bias + n);
+          const float v1 = acc[mi][4 * i + 2 * half + 1] + __ldg(bias + n + 1);
+          *reinterpret_cast<__nv_bfloat162*>(y + p * D + n) = __floats2bfloat162_rn(v0, v1);
+        }
       }
     }
   }
@@ -175,16 +276,33 @@ extern "C" int s2s_conv3x3_fwd(const void* x, const void* w, const void* bias, v
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if ((scale == nullptr) != (shift == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(conv3x3_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kSmemBytes);
+  const Prologue pro = make_prologue(static_cast<const float*>(scale), static_cast<const float*>(shift), silu,
+                                     dropout, seed, keep_threshold, keep_scale);
+  const bool identity = scale == nullptr && !silu && !dropout;
+  auto kernel = identity ? conv3x3_fwd_kernel<false> : conv3x3_fwd_kernel<true>;
+  const int smem = identity ? kSmemBytes<false> : kSmemBytes<true>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint64_t b = static_cast<uint64_t>(B), h = static_cast<uint64_t>(H), wd = static_cast<uint64_t>(W);
+  const uint64_t c = static_cast<uint64_t>(C), d = static_cast<uint64_t>(D);
+  CUtensorMap x_map, halo_map, w_map;  // boxes of 32 input channels: a 18 x 16 window (K3), the 18 x 18
+                                      // halo (K2), 3 taps x 128 output channels
+  err = make_map_4d(&x_map, x, {c, wd, h, b}, {kBK, kTW, kHH, 1}, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = make_map_4d(&halo_map, x, {c, wd, h, b}, {kBK, kHW, kHH, 1}, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = make_map_4d(&w_map, w, {c, d, 3, 3}, {kBK, kBN, 1, 3}, CU_TENSOR_MAP_SWIZZLE_64B);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles_h = (H + kTH - 1) / kTH;
   const int tiles_w = W / kTW;
-  const dim3 grid(static_cast<unsigned>(B) * tiles_h * tiles_w, D / kBN);
-  const Prologue pro = make_prologue(static_cast<const float*>(scale), static_cast<const float*>(shift), silu,
-                                     dropout, seed, keep_threshold, keep_scale);
-  conv3x3_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), H, W, C, D, tiles_h, tiles_w, pro);
+  const int n_items = B * tiles_h * tiles_w * (D / kBN);
+  const int grid = n_items < sms ? n_items : sms;  // persistent: one block an SM
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x_map, halo_map, w_map, static_cast<const float*>(bias),
+      static_cast<__nv_bfloat16*>(y), H, W, C, D, tiles_h, tiles_w, n_items, pro);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 // Warp-level tensor-core and asynchronous-copy primitives for Hopper (sm_90a),
-// shared by the fused-conv kernels (conv3x3_fwd.cu, conv3x3_wgrad.cu) and the
-// attention kernels (attention_fwd.cu, attention_bwd.cu): ldmatrix, mma.sync
-// m16n8k16 bf16 with f32 accumulators, and 16-byte cp.async with zero fill.
+// used by the attention kernels (attention_fwd.cu, attention_bwd.cu): ldmatrix,
+// mma.sync m16n8k16 bf16 with f32 accumulators, and 16-byte cp.async with zero
+// fill. The fused-conv kernels use the warpgroup primitives of
+// wgmma_common.cuh instead.
 
 #pragma once
 

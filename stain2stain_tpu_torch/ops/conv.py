@@ -54,7 +54,8 @@ SUBLANE_BF16 = 16
 _BF16 = torch.bfloat16
 _F32 = torch.float32
 _K4_SLICE_PX = 1024  # pixels of one image that one K4 block reduces
-_K5_BLOCKS_PER_SM = 4  # K5 splits the pixels until about this many blocks fill each SM
+_K5_TILE = (8, 16)  # output rows x columns of a K5 pixel tile
+_K5_CHANNELS = 64  # input and output channels of a K5 block (one per SM)
 
 _P, _I, _U, _FL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # (scale, shift, silu, dropout, seed, keep_threshold, keep_scale): the prologue's arguments
@@ -263,6 +264,8 @@ def _prologue_args(x, scale, shift, act, dropout_rate, seed, name):
             if tuple(t.shape) != (b, c) or t.device != x.device:
                 raise ValueError(f"{name}: scale and shift must be ({b}, {c}) on {x.device}")
             t = t.detach().to(_F32).contiguous()
+            if t.data_ptr() % 16:  # the kernels read eight channels' factors as two float4
+                t = t.clone()
             keep.append(t)
             ptrs[i] = t.data_ptr()
     drop = dropout_rate > 0.0
@@ -365,13 +368,31 @@ def prologue_grad(x, dn, scale=None, shift=None, act=None, dropout_rate: float =
 prologue_grad.launches = 0
 
 
+def wgrad_geometry(b: int, h: int, w: int, c: int, d: int, sms: int):
+    """K5's launch geometry: (splits, shape of the f32 partials).
+
+    A block owns 64 input × 64 output channels (all 9 taps) and walks the
+    8 × 16 pixel tiles ``split, split + splits, …``; splits are chosen so
+    that at most one block runs on each of the ``sms`` SMs: the grid is one
+    wave (a second, nearly empty wave would double the time). Each split
+    writes its 9·C·D weight partials and, per 64-channel input tile, a D-wide
+    share of dbias (the tiles ``ci, ci + C/64, …`` of its walk).
+    """
+    th, tw = _K5_TILE
+    pixel_tiles = b * -(-h // th) * (w // tw)
+    blocks = (c // _K5_CHANNELS) * (d // _K5_CHANNELS)
+    splits = max(1, min(pixel_tiles, sms // blocks))
+    return splits, (splits, 9 * c * d + (c // _K5_CHANNELS) * d)
+
+
 def conv3x3_weight_grad(x, dy, scale=None, shift=None, act=None, dropout_rate: float = 0.0, seed=None):
     """K5: (dW (3, 3, C, D) f32, dbias (D,) f32) of the fused conv, with n
     recomputed from raw x (mask included) instead of read from memory.
 
-    Split over pixels: each block sums one (32 C, 64 D) tile of all 9 taps
-    over a share of the pixels into an f32 scratch this wrapper allocates,
-    then an ordered reduction adds the shares, so two runs give the same sums.
+    Split over pixels (:func:`wgrad_geometry`): each block sums one (64 C,
+    64 D) tile of all 9 taps over a share of the pixel tiles into an f32
+    scratch this wrapper allocates, then an ordered reduction adds the shares,
+    so two runs give the same sums.
     """
     if runs_plain("conv3x3_weight_grad", x, dy):
         return conv3x3_weight_grad_reference(x, dy, scale, shift, act, dropout_rate, seed)
@@ -382,11 +403,9 @@ def conv3x3_weight_grad(x, dy, scale=None, shift=None, act=None, dropout_rate: f
     if dy.shape[:3] != x.shape[:3] or not supported(x.shape, (3, 3, c, d)):
         raise ValueError(f"conv3x3_weight_grad: unsupported shapes x {tuple(x.shape)}, dy {tuple(dy.shape)}")
     pro, keep = _prologue_args(x, scale, shift, act, dropout_rate, seed, "conv3x3_weight_grad")
-    pixel_tiles = b * -(-h // 8) * (w // 16)  # 8 x 16 output pixels each
-    tiles = (c // 32) * (d // 64)  # blocks of 32 input x 64 output channels, all 9 taps
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = max(1, min(pixel_tiles, -(-_K5_BLOCKS_PER_SM * sms // tiles)))
-    partial = torch.empty((splits, 9 * c * d + d), dtype=_F32, device=x.device)
+    splits, scratch = wgrad_geometry(b, h, w, c, d, sms)
+    partial = torch.empty(scratch, dtype=_F32, device=x.device)
     dw = torch.empty((3, 3, c, d), dtype=_F32, device=x.device)
     dbias = torch.empty((d,), dtype=_F32, device=x.device)
     fn = _fn("conv3x3_wgrad.cu", "s2s_conv3x3_wgrad", [_P] * 5 + [_I] * 6 + _PROLOGUE_ARGTYPES + [_P])
@@ -465,4 +484,5 @@ __all__ = [
     "prologue_grad",
     "prologue_grad_reference",
     "supported",
+    "wgrad_geometry",
 ]

@@ -37,6 +37,16 @@ from stain2stain_tpu_torch.ops.dropout import hash_mask
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 SUM_TOL = dict(rtol=1e-3, atol=1e-3)
 SHAPES = [(2, 32, 16, 128, 128), (2, 16, 32, 128, 256), (2, 8, 16, 128, 128)]
+# H 20: past the last whole 8- or 16-row tile of the kernels; C 384: the
+# flagship's level-0 skip-concat width
+RAGGED = (2, 20, 16, 384, 128)
+# the fused flagship's (H·W, C, D) at 256 px (``test_supported_on_flagship_shapes_and_refused_ones``)
+FLAGSHIP = [
+    (65536, 128, 128), (65536, 256, 128), (65536, 384, 128),
+    (16384, 128, 256), (16384, 256, 256), (16384, 512, 256),
+    (4096, 256, 256), (4096, 512, 256), (4096, 768, 256),
+    (1024, 256, 512), (1024, 512, 512), (1024, 1024, 512),
+]
 
 
 def _close(got, want, rtol, atol):
@@ -101,7 +111,7 @@ def test_fused_conv_affine_silu_matches_jax(shift_offset):
     _close(got, want, **BF16_TOL)
 
 
-@pytest.mark.parametrize("B,H,W,C,D", SHAPES)
+@pytest.mark.parametrize("B,H,W,C,D", SHAPES + [RAGGED])
 def test_input_grad_matches_jax(B, H, W, C, D):
     d = _inputs(B, H, W, C, D)
     want = pc.conv3x3_input_grad(_j(d["dy"], jnp.bfloat16), _j(d["w"], jnp.bfloat16), interpret=True)
@@ -124,17 +134,20 @@ def test_prologue_grad_matches_jax(affine):
     _close(got[2], want[2], **SUM_TOL)
 
 
-@pytest.mark.parametrize("B,H,W,C,D", SHAPES[:2])
+@pytest.mark.parametrize("B,H,W,C,D", SHAPES + [RAGGED])
 def test_weight_grad_matches_jax(B, H, W, C, D):
+    """With the affine + SiLU prologue, and at the ragged shape without it: there
+    the two sides' n would differ by one bf16 rounding of SiLU in a few of its
+    245,760 elements, each moving a dW sum by far more than the f32 budget;
+    without a prologue n = x on both sides and only the summation order differs."""
     d = _inputs(B, H, W, C, D)
+    prologue = (B, H, W, C, D) != RAGGED
+    kw_j = dict(scale=_j(d["scale"]), shift=_j(d["shift"]), act="silu") if prologue else {}
+    kw_t = dict(scale=_t(d["scale"]), shift=_t(d["shift"]), act="silu") if prologue else {}
     want_dw, want_db = pc.conv3x3_weight_grad(
-        _j(d["x"], jnp.bfloat16), _j(d["dy"], jnp.bfloat16),
-        scale=_j(d["scale"]), shift=_j(d["shift"]), act="silu", interpret=True,
+        _j(d["x"], jnp.bfloat16), _j(d["dy"], jnp.bfloat16), interpret=True, **kw_j
     )
-    got_dw, got_db = conv.conv3x3_weight_grad(
-        _t(d["x"], torch.bfloat16), _t(d["dy"], torch.bfloat16),
-        scale=_t(d["scale"]), shift=_t(d["shift"]), act="silu",
-    )
+    got_dw, got_db = conv.conv3x3_weight_grad(_t(d["x"], torch.bfloat16), _t(d["dy"], torch.bfloat16), **kw_t)
     assert tuple(got_dw.shape) == (3, 3, C, D) and got_dw.dtype == torch.float32
     _close(got_dw, want_dw, **SUM_TOL)
     _close(got_db, want_db, **SUM_TOL)
@@ -305,13 +318,7 @@ def test_dropout_core_grads_equal_autograd_through_plain_composite():
 
 
 def test_supported_on_flagship_shapes_and_refused_ones():
-    flagship = [
-        (65536, 128, 128), (65536, 256, 128), (65536, 384, 128),
-        (16384, 128, 256), (16384, 256, 256), (16384, 512, 256),
-        (4096, 256, 256), (4096, 512, 256), (4096, 768, 256),
-        (1024, 256, 512), (1024, 512, 512), (1024, 1024, 512),
-    ]
-    for hw, c, d in flagship:
+    for hw, c, d in FLAGSHIP:
         side = int(hw ** 0.5)
         assert conv.supported((32, side, side, c), (3, 3, c, d)), (hw, c, d)
         assert conv.supported((32, side, side, c), (3, 3, c, d)) == pc.supported(
@@ -329,6 +336,35 @@ def test_supported_on_flagship_shapes_and_refused_ones():
     for xs, ws in refused:
         assert not conv.supported(xs, ws)
         assert conv.supported(xs, ws) == pc.supported(xs, ws)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+@pytest.mark.parametrize("hw,c,d", FLAGSHIP + [(RAGGED[1] * RAGGED[2], RAGGED[3], RAGGED[4])])
+def test_wgrad_geometry_covers_each_tile_once_within_the_scratch_budget(hw, c, d, sms):
+    """K5's split (``conv.wgrad_geometry``), walked as the kernel walks it: every
+    8 x 16 pixel tile is summed once per channel block, and dbias once per D
+    tile (by the C tile ``j % (C/64)`` of each split's walk); the grid is one
+    wave (at most one block an SM, as many splits as fit); the f32 partials
+    stay under 256 MiB at batch 32."""
+    if (hw, c, d) == (RAGGED[1] * RAGGED[2], RAGGED[3], RAGGED[4]):
+        b, h, w = RAGGED[0], RAGGED[1], RAGGED[2]
+    else:
+        b, h = 32, int(hw ** 0.5)
+        w = h
+    splits, scratch = conv.wgrad_geometry(b, h, w, c, d, sms)
+    tiles = b * -(-h // 8) * (w // 16)
+    c_tiles, blocks = c // 64, (c // 64) * (d // 64)
+    assert 1 <= splits <= tiles
+    assert scratch == (splits, 9 * c * d + c_tiles * d)
+    assert scratch[0] * scratch[1] * 4 < 256 * 2**20
+    walked = sorted(pt for split in range(splits) for pt in range(split, tiles, splits))
+    assert walked == list(range(tiles))
+    bias_tiles = sorted(split + j * splits for ci in range(c_tiles) for split in range(splits)
+                        for j in range(-(-(tiles - split) // splits)) if j % c_tiles == ci)
+    assert bias_tiles == list(range(tiles))
+    assert splits == 1 or splits * blocks <= sms
+    if splits < tiles:
+        assert (splits + 1) * blocks > sms
 
 
 def test_wrappers_refuse_other_devices_and_bad_arguments():
