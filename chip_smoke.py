@@ -8,13 +8,15 @@ Phases (any failure ends the script with a non-zero exit and no result line):
 1. Device: the card's name and power limit, the torch and CUDA versions.
 2. Build: every CUDA kernel of the port from ``stain2stain_tpu_torch/csrc``
    with ``nvcc`` (one process per source, all at once), with ptxas' report.
-   ptxas must report no spills for the tensor-core kernels: the bf16
-   attention kernels and the wgmma kernels of K2/K3 and K5.
+   ptxas must report no spills for the kernels of ``SPILL_CHECKED``: the
+   bf16 attention kernels, the f32 K1-fwd kernel, the wgmma kernels of K2/K3
+   and K5, and K4.
 3. K1-fwd (``csrc/attention_fwd.cu``) against its plain PyTorch version on
    the card, output and row log-sum-exp, with the stated tolerances: the
    serving shapes (f32 and bf16), the training shape (bf16, with the lse that
-   training saves), d 16 and d 64, T 4096, ragged T, peaked logits (q × 8);
-   times of the kernel, the plain version and
+   training saves), d 16 and d 64 (both dtypes), T 4096, ragged T, peaked
+   logits (q × 8); times of the kernel (per call, ``ms``, and queued device
+   time, ``queued_ms``, see :func:`cuda_queued_ms`), the plain version and
    ``scaled_dot_product_attention`` (a yardstick only, never used by the
    port) beside the bound computed from the shape.
 4. K1-bwd (``csrc/attention_bwd.cu``) against its plain version (the
@@ -54,9 +56,10 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    function (a yardstick only, never used by the port) beside the bound
    computed from the shape; K4 and K5 run twice and must agree bit for bit;
    K2 with an identity centre tap must reproduce ``hash_mask``'s dropout mask
-   bit for bit. Then the sweep: K2, K3 and K5 against cuDNN at each distinct
-   conv shape of the fused flagship (recorded from one net forward), with
-   its launches per train step and the launch-weighted totals per step.
+   bit for bit. Then the sweep: K2, K3 and K5 against cuDNN, and K4 (per call
+   and queued) against its bound, at each distinct conv shape of the fused
+   flagship (recorded from one net forward), with its launches per train
+   step and the launch-weighted totals per step.
 10. The training path of phase 7 again with ``+model.net.fused_conv=true``
     on the same synthetic data: K2 must have launched 44 times per net
     forward (22 ResBlocks × 2 convs) and K3, K4, K5 44 times per backward
@@ -65,8 +68,9 @@ Phases (any failure ends the script with a non-zero exit and no result line):
     from one generator seed) on the card (K2–K5) against the same step on
     the CPU (their plain versions): loss and every parameter gradient; and
     the fused against the unfused net on the card, same weights, eval.
-12. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5), the card line, and
-    ``{"ok": true, "device": ...}`` as the last line.
+12. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5, each with ``ms`` and
+    ``queued_ms``), the card line, and ``{"ok": true, "device": ...}`` as the
+    last line.
 
 It exits non-zero, printing no result, when no CUDA card is present or when
 the port's package is not beside it.
@@ -142,7 +146,9 @@ def nvidia_smi(query: str) -> str:
 
 
 def cuda_ms(fn, repeats: int, warmup: int = 2) -> float:
-    """Median per-call milliseconds, each call bracketed by CUDA events."""
+    """Median per-call milliseconds, each call bracketed by CUDA events. The
+    card may wait for the host inside the bracket (the wrapper's checks,
+    allocations and launches): :func:`cuda_queued_ms` leaves that out."""
     import torch
 
     for _ in range(warmup):
@@ -156,6 +162,29 @@ def cuda_ms(fn, repeats: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+QUEUE_SLEEP_CYCLES = 100_000_000  # about 50 ms at the H100's SM clock
+
+
+def cuda_queued_ms(fn, calls: int = 20, warmup: int = 2) -> float:
+    """Device milliseconds per call of ``calls`` back-to-back calls between two
+    CUDA events, divided by ``calls``. A sleep kernel ahead of the first event
+    holds the card while the host enqueues every call, so the card never waits
+    for the host between the events: the queued device time."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def attention_bound(bh: int, t: int, d: int, dtype: str, exp_per_s: float, lse: bool = False) -> dict:
@@ -174,20 +203,22 @@ def attention_bound(bh: int, t: int, d: int, dtype: str, exp_per_s: float, lse: 
     }
 
 
-# the tensor-core kernels ptxas must compile without spills: the bf16 attention
-# kernels of K1-fwd and K1-bwd, and the wgmma kernels of K2/K3 and K5
+# the kernels ptxas must compile without spills: the bf16 attention kernels of
+# K1-fwd and K1-bwd, the register-tiled f32 K1-fwd, the wgmma kernels of K2/K3
+# and K5, and K4
 SPILL_CHECKED = {
-    "attention_fwd.cu": ("mma_kernel",),
+    "attention_fwd.cu": ("mma_kernel", "f32_kernel"),
     "attention_bwd.cu": ("mma_kernel", "prep"),
     "conv3x3_fwd.cu": ("conv3x3_fwd_kernel",),
+    "prologue_grad.cu": ("prologue_grad_kernel",),
     "conv3x3_wgrad.cu": ("conv3x3_wgrad_kernel",),
 }
 
 
-def tensor_core_spills(build_logs: dict) -> dict:
-    """Spill-store bytes of every tensor-core kernel of ``SPILL_CHECKED`` (the
-    attention ones in their bf16 instances), by source and mangled name, from
-    ptxas' report (``-Xptxas -v``)."""
+def checked_spills(build_logs: dict) -> dict:
+    """Spill-store bytes of every kernel of ``SPILL_CHECKED`` (K1-bwd's prep
+    pass in its bf16 instances only), by source and mangled name, from ptxas'
+    report (``-Xptxas -v``)."""
     import re
 
     spills = {}
@@ -200,8 +231,8 @@ def tensor_core_spills(build_logs: dict) -> dict:
             found = re.search(r"(\d+) bytes spill stores", line)
             if not (found and name and any(k in name for k in keys)):
                 continue
-            if src.startswith("attention") and "mma_kernel" not in name and "bfloat16" not in name:
-                continue  # the f32 prep pass: SIMT, not checked
+            if src == "attention_bwd.cu" and "mma_kernel" not in name and "bfloat16" not in name:
+                continue  # K1-bwd's f32 prep pass: SIMT, not checked
             spills[f"{src}:{name}"] = int(found.group(1))
     return spills
 
@@ -230,6 +261,9 @@ def phase_kernels(exp_per_s: float) -> dict:
         (64, 1024, 32, "bfloat16", 8.0, True, "peaked logits (q x 8), bf16"),
         (16, 1000, 32, "float32", 1.0, False, "ragged T, f32"),
         (16, 1000, 32, "bfloat16", 1.0, False, "ragged T, bf16"),
+        (256, 1024, 16, "float32", 1.0, False, "d 16, f32"),
+        (128, 1024, 64, "float32", 1.0, False, "d 64, f32"),
+        (64, 1024, 32, "float32", 8.0, True, "peaked logits (q x 8), f32"),
     ]
     results = []
     for bh, t, d, dtype, peak, with_lse, what in cases:
@@ -244,6 +278,7 @@ def phase_kernels(exp_per_s: float) -> dict:
         lse_err = (lse - ref_lse).abs().max().item()
         ok = bool(torch.isfinite(out).all()) and err <= TOL[dtype] and lse_err <= LSE_TOL
         ms = cuda_ms(lambda: fused_attention(q, k, v, scale, return_lse=with_lse), repeats=20)
+        queued_ms = cuda_queued_ms(lambda: fused_attention(q, k, v, scale, return_lse=with_lse))
         plain_ms = cuda_ms(lambda: fused_attention_reference(q, k, v, scale, return_lse=with_lse), repeats=5)
         # (1, BH, T, d): the 4-D layout SDPA's fused backends take
         library_ms = cuda_ms(
@@ -251,7 +286,7 @@ def phase_kernels(exp_per_s: float) -> dict:
         )
         row = dict(bh=bh, t=t, d=d, shape=[bh, t, d], dtype=dtype, q_scale=peak, lse=with_lse, what=what,
                    max_abs_err=err, tol=TOL[dtype], lse_max_abs_err=lse_err, lse_tol=LSE_TOL,
-                   ok=ok, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   ok=ok, ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, library_ms=library_ms,
                    **attention_bound(bh, t, d, dtype, exp_per_s, with_lse))
         log("K1 " + json.dumps(row))
         results.append(row)
@@ -332,6 +367,7 @@ def phase_k1_bwd(exp_per_s: float) -> dict:
         ok = (all(bool(torch.isfinite(g).all()) for g in got + recomputed) and deterministic
               and max(err, err_recomputed, auto_err) <= tol)
         ms = cuda_ms(lambda: fused_attention_backward(q, k, v, o, do, scale, lse), repeats=10)
+        queued_ms = cuda_queued_ms(lambda: fused_attention_backward(q, k, v, o, do, scale, lse), calls=10)
         ms_recomputed = cuda_ms(lambda: fused_attention_backward(q, k, v, o, do, scale), repeats=10)
         plain_ms = cuda_ms(lambda: fused_attention_backward_reference(q, k, v, o, do, scale, lse),
                            repeats=3, warmup=1)
@@ -343,7 +379,8 @@ def phase_k1_bwd(exp_per_s: float) -> dict:
         )
         row = dict(bh=bh, t=t, d=d, shape=[bh, t, d], dtype=dtype, q_scale=peak, what=what, max_abs_err=err,
                    max_abs_err_recomputed_lse=err_recomputed, autograd_vs_plain=auto_err, deterministic=deterministic,
-                   ref_max_abs=ref_max, tol=tol, ok=ok, ms=ms, ms_recomputed_lse=ms_recomputed, plain_ms=plain_ms,
+                   ref_max_abs=ref_max, tol=tol, ok=ok, ms=ms, queued_ms=queued_ms, ms_recomputed_lse=ms_recomputed,
+                   plain_ms=plain_ms,
                    library_ms=library_ms, **attention_bwd_bound(bh, t, d, dtype, exp_per_s))
         log("K1-bwd " + json.dumps(row))
         results.append(row)
@@ -405,7 +442,7 @@ def phase_conv_kernels(exp_per_s: float) -> dict:
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
 
-    def record(name, b, h, w, c, d, what, got, ref, kinds, ms, plain_ms, library_ms, extra=None):
+    def record(name, b, h, w, c, d, what, got, ref, kinds, fn, plain_ms, library_ms, extra=None, repeats=10):
         err, ok, ref_max = 0.0, True, 0.0
         for g, r, kind in zip(got, ref, kinds):
             r_max = r.float().abs().max().item()
@@ -413,7 +450,8 @@ def phase_conv_kernels(exp_per_s: float) -> dict:
             ok = ok and bool(torch.isfinite(g).all()) and e <= CONV_REL_TOL[kind] * r_max
             err, ref_max = max(err, e), max(ref_max, r_max)
         row = dict(name=name, shape=[b, h, w, c, d], what=what, dtype="bfloat16", max_abs_err=err,
-                   ref_max_abs=ref_max, tol_rel=[CONV_REL_TOL[k] for k in kinds], ok=ok, ms=ms,
+                   ref_max_abs=ref_max, tol_rel=[CONV_REL_TOL[k] for k in kinds], ok=ok,
+                   ms=cuda_ms(fn, repeats=repeats), queued_ms=cuda_queued_ms(fn),
                    plain_ms=plain_ms, library_ms=library_ms, **(extra or {}),
                    **conv_bound(name, b, h, w, c, d, exp_per_s))
         log(f"{name} " + json.dumps(row))
@@ -438,7 +476,7 @@ def phase_conv_kernels(exp_per_s: float) -> dict:
         y = conv.fused_conv3x3(x, wt, bias, **kw)
         torch.cuda.synchronize()
         record("K2", b, h, w, c, d, what, [y], [conv.fused_conv3x3_reference(x, wt, bias, **kw)], ["bf16"],
-               cuda_ms(lambda: conv.fused_conv3x3(x, wt, bias, **kw), repeats=10),
+               lambda: conv.fused_conv3x3(x, wt, bias, **kw),
                cuda_ms(lambda: conv.fused_conv3x3_reference(x, wt, bias, **kw), repeats=3, warmup=1),
                cuda_ms(lambda: F.conv2d(n_nchw, w_oihw, bias16, padding=1), repeats=10))
         del y
@@ -447,7 +485,7 @@ def phase_conv_kernels(exp_per_s: float) -> dict:
         torch.cuda.synchronize()
         dn_ref = conv.conv3x3_input_grad_reference(dy, wt)
         record("K3", b, h, w, c, d, what, [dn], [dn_ref], ["bf16"],
-               cuda_ms(lambda: conv.conv3x3_input_grad(dy, wt), repeats=10),
+               lambda: conv.conv3x3_input_grad(dy, wt),
                cuda_ms(lambda: conv.conv3x3_input_grad_reference(dy, wt), repeats=3, warmup=1),
                cuda_ms(lambda: F.conv2d(dy_nchw, wi_oihw, padding=1), repeats=10))
         del dn
@@ -458,7 +496,7 @@ def phase_conv_kernels(exp_per_s: float) -> dict:
         det = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
         record("K4", b, h, w, c, d, what, got, conv.prologue_grad_reference(x, dn_ref, **kw),
                ["bf16", "f32", "f32"],
-               cuda_ms(lambda: conv.prologue_grad(x, dn_ref, **kw), repeats=10),
+               lambda: conv.prologue_grad(x, dn_ref, **kw),
                cuda_ms(lambda: conv.prologue_grad_reference(x, dn_ref, **kw), repeats=3, warmup=1),
                None, {"deterministic": det})
         rows["K4"][-1]["ok"] &= det
@@ -469,10 +507,10 @@ def phase_conv_kernels(exp_per_s: float) -> dict:
         torch.cuda.synchronize()
         det = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
         record("K5", b, h, w, c, d, what, got, conv.conv3x3_weight_grad_reference(x, dy, **kw), ["f32", "f32"],
-               cuda_ms(lambda: conv.conv3x3_weight_grad(x, dy, **kw), repeats=5),
+               lambda: conv.conv3x3_weight_grad(x, dy, **kw),
                cuda_ms(lambda: conv.conv3x3_weight_grad_reference(x, dy, **kw), repeats=3, warmup=1),
                cuda_ms(lambda: torch.nn.grad.conv2d_weight(n_nchw, (d, c, 3, 3), dy_nchw, padding=1), repeats=5),
-               {"deterministic": det})
+               {"deterministic": det}, repeats=5)
         rows["K5"][-1]["ok"] &= det
         del got, again
 
@@ -532,10 +570,11 @@ def flagship_fused_convs() -> dict:
 
 
 def phase_conv_sweep(exp_per_s: float, batch: int = 32) -> dict:
-    """K2, K3 and K5 against cuDNN at every distinct conv shape of the fused
-    flagship (batch 32, 256 px), CUDA events only, with each shape's launches
-    per train step (one forward, one backward) and the launch-weighted totals
-    per step: the "launches x gap" that orders the kernel queue."""
+    """K2, K3 and K5 against cuDNN, and K4 against its bound, at every distinct
+    conv shape of the fused flagship (batch 32, 256 px), CUDA events only, with
+    each shape's launches per train step (one forward, one backward) and the
+    launch-weighted totals per step: the "launches x gap" that orders the
+    kernel queue. K4 (no library call) also in queued device time."""
     import torch
     import torch.nn.functional as F
 
@@ -547,7 +586,8 @@ def phase_conv_sweep(exp_per_s: float, batch: int = 32) -> dict:
         raise AssertionError(f"the fused flagship runs {sum(shapes.values())} fused convs, not {FLAGSHIP_FUSED_CONVS}")
     gen = torch.Generator(device="cuda").manual_seed(9)
     bf16 = torch.bfloat16
-    keys = ("K2", "K3", "K5", "cudnn_K2", "cudnn_K3", "cudnn_K5", "bound_K2", "bound_K3", "bound_K5")
+    keys = ("K2", "K3", "K4", "K4_queued", "K5", "cudnn_K2", "cudnn_K3", "cudnn_K5",
+            "bound_K2", "bound_K3", "bound_K4", "bound_K5")
     totals = dict.fromkeys(keys, 0.0)
     rows = []
     for (h, w, c, d), n in sorted(shapes.items()):
@@ -558,6 +598,7 @@ def phase_conv_sweep(exp_per_s: float, batch: int = 32) -> dict:
         wt = (randn(3, 3, c, d) / (3.0 * math.sqrt(c))).to(bf16)
         bias = 0.1 * randn(d)
         dy = randn(batch, h, w, d).to(bf16)
+        dn = randn(batch, h, w, c).to(bf16)
         kw = dict(scale=1.0 + 0.2 * randn(batch, c), shift=0.2 * randn(batch, c), act="silu",
                   dropout_rate=0.1, seed=4321)
         x_nchw, dy_nchw = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)  # channels-last memory
@@ -567,17 +608,20 @@ def phase_conv_sweep(exp_per_s: float, batch: int = 32) -> dict:
         row = dict(shape=[batch, h, w, c, d], launches_per_step=n,
                    K2=cuda_ms(lambda: conv.fused_conv3x3(x, wt, bias, **kw), repeats=5),
                    K3=cuda_ms(lambda: conv.conv3x3_input_grad(dy, wt), repeats=5),
+                   K4=cuda_ms(lambda: conv.prologue_grad(x, dn, **kw), repeats=5),
+                   K4_queued=cuda_queued_ms(lambda: conv.prologue_grad(x, dn, **kw)),
                    K5=cuda_ms(lambda: conv.conv3x3_weight_grad(x, dy, **kw), repeats=5),
                    cudnn_K2=cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, bias16, padding=1), repeats=5),
                    cudnn_K3=cuda_ms(lambda: F.conv2d(dy_nchw, wi_oihw, padding=1), repeats=5),
                    cudnn_K5=cuda_ms(lambda: torch.nn.grad.conv2d_weight(x_nchw, (d, c, 3, 3), dy_nchw, padding=1),
                                     repeats=5),
-                   **{f"bound_{k}": conv_bound(k, batch, h, w, c, d, exp_per_s)["bound_ms"] for k in ("K2", "K3", "K5")})
+                   **{f"bound_{k}": conv_bound(k, batch, h, w, c, d, exp_per_s)["bound_ms"]
+                      for k in ("K2", "K3", "K4", "K5")})
         for k in keys:
             totals[k] += n * row[k]
         log("conv-sweep " + json.dumps(row))
         rows.append(row)
-        del x, wt, bias, dy, kw, x_nchw, dy_nchw, w_oihw, wi_oihw, bias16
+        del x, wt, bias, dy, dn, kw, x_nchw, dy_nchw, w_oihw, wi_oihw, bias16
         torch.cuda.empty_cache()
     total = dict(batch=batch, convs_per_step=sum(shapes.values()), shapes=len(shapes),
                  **{f"{k}_ms_per_step": v for k, v in totals.items()})
@@ -1127,6 +1171,10 @@ def phase_profile_train(card: str, fused: bool = False) -> dict:
                  share=_device_us(e) / busy_us) for e in top]
     for r in rows:
         log(f"{name}-kernel " + json.dumps(r))
+    # every kernel of the port, in or out of the top rows: its device ms a step
+    ours = {e.key[:60]: dict(device_ms=_device_us(e) / 1e3 / steps, calls=e.count / steps) for e in kernels
+            if _train_kernel_category(e.key) in ("fused conv K2-K5", "attention kernels K1-fwd/K1-bwd")}
+    log(f"{name}-port-kernels " + json.dumps(ours))
     shares: dict[str, float] = {}
     for e in kernels:
         category = _train_kernel_category(e.key)
@@ -1183,11 +1231,11 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers", "spill")) or "error" in line.lower():
                 log(f"ptxas {src}: {line.strip()}")
     log(f"build: {build_s:.3f} s for {len(_build.SOURCES)} source(s)")
-    spills = tensor_core_spills(build_logs)
+    spills = checked_spills(build_logs)
     log("ptxas-spills " + json.dumps(spills))
     missing = [src for src in SPILL_CHECKED if not any(k.startswith(src + ":") for k in spills)]
     if missing or any(spills.values()):
-        raise AssertionError(f"ptxas spilled in a tensor-core kernel, or reported none for {missing}: {spills}")
+        raise AssertionError(f"ptxas spilled in a checked kernel, or reported none for {missing}: {spills}")
 
     # 3-4. K1-fwd and K1-bwd against their plain versions
     k1 = phase_kernels(exp_per_s)
@@ -1242,6 +1290,7 @@ def main() -> int:
             "launches_by_path": by_path,
             "max_abs_err": case["max_abs_err"],
             "ms": case["ms"],
+            "queued_ms": case["queued_ms"],
             "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"],

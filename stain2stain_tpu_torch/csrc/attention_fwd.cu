@@ -16,7 +16,8 @@
 // exponentials (about 65-70 us on the MUFU units, 132 SMs x 16/clk), and 67 MB
 // of bf16 q/k/v/o (about 20 us at 3.35 TB/s). So with bf16 tensor cores the
 // exponential sets the bound, not the products or the bytes. For f32 inputs,
-// which keep f32 products, the 67 TFLOP/s of the FP32 pipes set it (~0.5 ms).
+// which keep f32 products, the 67 TFLOP/s of the FP32 pipes set it: 0.513 ms
+// (134 MB of f32 q/k/v/o take 0.040 ms, the exponentials 0.064 ms).
 //
 // bf16 design (attention_common.cuh; FlashAttention-2's shape): one block of 4
 // warps per (bh, 64-query tile), each warp 16 query rows whose q fragments load
@@ -29,11 +30,37 @@
 // the A operand of p.v, v read by ldmatrix.trans. Keys past T score -inf; rows
 // past T compute but do not store.
 //
-// f32 design: one thread per query row, 64-thread blocks, q (pre-scaled by
-// scale*log2(e)) and the accumulator in registers, 64-key k/v tiles staged as
-// f32 in shared memory (every thread reads the same key row: broadcast), an
-// online softmax over 16-key chunks; plain FMAs on the FP32 pipes, since f32
-// serving keeps f32 products (its tolerance is 5e-5).
+// f32 design (the serving path's kernel; FlashAttention-2's shape on the FP32
+// pipes: f32 serving keeps f32 products, its tolerance is 5e-5, so no TF32).
+// Its bound is the FP32 FMA rate, 0.513 ms at the serving shape. What keeps a
+// SIMT attention from it is shared-memory traffic per FFMA (one thread per
+// query row reads one broadcast float4 per 4 FFMAs: a third of the bound on
+// the H100). So both products are register-tiled:
+//   * a block of 128 threads: thread (g, j), g = tid/8 its row group, j its
+//     lane in the group; a group owns R query rows, R = 8 at D 16 and 32
+//     (128-row blocks) and 4 at D 64 (64-row blocks), where 8 rows' scores
+//     and accumulators would not fit the registers;
+//   * q, pre-scaled by scale*log2(e), is staged once into shared memory; the
+//     64-key k and v tiles stream in by 16-byte cp.async, double buffered.
+//     Staged rows are padded to D + 4 floats, so the 8 rows that a quarter
+//     warp reads at one column fall in 8 distinct 4-bank groups, and q's rows
+//     are stored permuted (q_slot) so that a warp's 4 row groups read 4
+//     consecutive rows too;
+//   * s = q.k^T: a thread owns R rows x 8 keys (keys j + 8i, interleaved for
+//     the banks); per 4 columns of d it reads R q and 8 k float4s for 32R
+//     FFMAs (256 per 16 reads at R 8); the loop is unrolled by 2, not fully,
+//     which is faster (254 registers at D 32, 168 at D 64);
+//   * the online softmax: the row max over the 8 lanes of a group by shuffles,
+//     one exp2 per score, the accumulator rescaled once per tile; each lane
+//     keeps its share of the row sum, added across the group at the end;
+//   * p.v: p goes to shared memory transposed (key-major, rows of R*16 + 4
+//     floats), and a thread owns its R rows x D/8 columns of the output: per
+//     key R/4 p float4s and D/32 v float4s (a float2 at D 16). A group's p^T
+//     rows are written and read by its own lanes, one warp, so a __syncwarp
+//     orders them: one block barrier per tile.
+// Shared memory is 63, 87 and 102 KB at D 16, 32, 64 (2 blocks an SM).
+// Measured choices against the alternatives are in PERF.md (PR 6). Keys past
+// T are zero-filled and score -inf; rows past T are zero and not stored.
 //
 // Launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -91,110 +118,258 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ---- f32: FP32 pipes -------------------------------------------------------
+// ---- f32: FP32 pipes, register-tiled ---------------------------------------
 
-constexpr int kF32Rows = 64;   // queries per block, one per thread
-constexpr int kF32Keys = 64;   // keys staged in shared memory per step
-constexpr int kChunk = 16;     // keys scored per online-softmax update
+constexpr int kF32Threads = 128;  // 16 row groups x 8 lanes
+constexpr int kF32Pad = 4;        // floats of padding after each staged row
 
+// Query rows of a thread: 8 (a 128-row block) at D 16 and 32; 4 (64 rows) at
+// D 64, where 8 rows' accumulators and scores would not fit the registers.
 template <int D>
-__global__ void __launch_bounds__(kF32Rows)
-attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                         float* __restrict__ o, float* __restrict__ lse, int t_len, int n_qtiles, float q_scale) {
-  static_assert(D % 4 == 0, "head dim must be a multiple of 4");
-  __shared__ __align__(16) float ks[kF32Keys][D];
-  __shared__ __align__(16) float vs[kF32Keys][D];
+constexpr int kF32RowsPerThread = D == 64 ? 4 : 8;
+template <int D>
+constexpr int kF32BlockRows = 16 * kF32RowsPerThread<D>;
 
-  const int bh = blockIdx.x / n_qtiles;
-  const int qtile = blockIdx.x - bh * n_qtiles;
-  const int tid = threadIdx.x;
-  const int row = qtile * kF32Rows + tid;
-  const bool row_valid = row < t_len;
-  const int64_t base = static_cast<int64_t>(bh) * t_len * D;
+// Shared-memory row of the block's query row r: row group g's rows R*g + i
+// are stored at i*16 + g, so the 4 row groups of a warp, reading their i-th
+// rows at once, read 4 consecutive padded rows (distinct banks).
+template <int D>
+__device__ __forceinline__ int q_slot(int r) {
+  constexpr int R = kF32RowsPerThread<D>;
+  return (r % R) * 16 + r / R;
+}
 
-  float qr[D];
-  float acc[D];
+// Shared-memory layout of the f32 kernel, in floats: q (the block's rows), k
+// and v (two 64-row tiles each), rows of D + 4; then p^T (64 keys x the
+// block's rows + 4).
+template <int D>
+struct F32Layout {
+  static constexpr int kRow = D + kF32Pad;
+  static constexpr int kPRow = kF32BlockRows<D> + kF32Pad;
+  static constexpr int kTileFloats = kTile * kRow;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kF32BlockRows<D> * kRow;
+  static constexpr int kV = kK + 2 * kTileFloats;
+  static constexpr int kP = kV + 2 * kTileFloats;
+  static constexpr int kBytes = 4 * (kP + kTile * kPRow);
+};
+
+// Start the cp.async copies of rows [row0, row0 + 64) of a contiguous (T, D)
+// f32 slice into a padded tile; rows past T are zero-filled.
+template <int D>
+__device__ __forceinline__ void stage_f32(float* dst, const float* __restrict__ src, int row0, int t_len, int tid) {
+  constexpr int kChunks = D / 4;  // 16-byte chunks of a row
+  static_assert(kTile * kChunks % kF32Threads == 0, "every thread copies the same number of chunks");
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-    qr[i] = row_valid ? q[base + static_cast<int64_t>(row) * D + i] * q_scale : 0.f;
-    acc[i] = 0.f;
+  for (int it = 0; it < kTile * kChunks / kF32Threads; ++it) {
+    const int i = tid + it * kF32Threads;
+    const int r = i / kChunks;
+    const int c = i - r * kChunks;
+    const int row = row0 + r;
+    const bool valid = row < t_len;
+    cp_async16(dst + r * F32Layout<D>::kRow + 4 * c, src + static_cast<int64_t>(valid ? row : 0) * D + 4 * c, valid);
   }
-  float m = -INFINITY;  // running max of the (log2-scaled) scores
-  float l = 0.f;        // running sum of exp2(score - m)
+}
 
-  for (int j0 = 0; j0 < t_len; j0 += kF32Keys) {
-    __syncthreads();  // the previous tile is fully consumed
-    for (int idx = tid; idx < kF32Keys * D; idx += kF32Rows) {
-      const int r = idx / D;
-      const int col = idx - r * D;
-      const int key = j0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (key < t_len) {
-        const int64_t off = base + static_cast<int64_t>(key) * D + col;
-        kv = k[off];
-        vv = v[off];
-      }
-      ks[r][col] = kv;
-      vs[r][col] = vv;
-    }
-    __syncthreads();
-
-    const int n_keys = min(kF32Keys, t_len - j0);
-    for (int c0 = 0; c0 < n_keys; c0 += kChunk) {
-      float s[kChunk];
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float4* kr = reinterpret_cast<const float4*>(&ks[c0 + j][0]);
-        float dot = 0.f;
-#pragma unroll
-        for (int i = 0; i < D / 4; ++i) {
-          const float4 kk = kr[i];
-          dot = fmaf(qr[4 * i + 0], kk.x, dot);
-          dot = fmaf(qr[4 * i + 1], kk.y, dot);
-          dot = fmaf(qr[4 * i + 2], kk.z, dot);
-          dot = fmaf(qr[4 * i + 3], kk.w, dot);
-        }
-        s[j] = (c0 + j < n_keys) ? dot : -INFINITY;
-        cmax = fmaxf(cmax, s[j]);
-      }
-      // The first chunk of the first tile always holds key 0, so m_new is
-      // finite and alpha = exp2(-inf) = 0 clears the empty accumulator.
-      const float m_new = fmaxf(m, cmax);
-      const float alpha = exp2f(m - m_new);
-      l *= alpha;
-#pragma unroll
-      for (int i = 0; i < D; ++i) acc[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float p = exp2f(s[j] - m_new);
-        l += p;
-        const float4* vr = reinterpret_cast<const float4*>(&vs[c0 + j][0]);
-#pragma unroll
-        for (int i = 0; i < D / 4; ++i) {
-          const float4 vv = vr[i];
-          acc[4 * i + 0] = fmaf(p, vv.x, acc[4 * i + 0]);
-          acc[4 * i + 1] = fmaf(p, vv.y, acc[4 * i + 1]);
-          acc[4 * i + 2] = fmaf(p, vv.z, acc[4 * i + 2]);
-          acc[4 * i + 3] = fmaf(p, vv.w, acc[4 * i + 3]);
-        }
-      }
-      m = m_new;
-    }
-  }
-
-  if (row_valid) {
-    const float inv_l = 1.f / l;
-    float* out = o + base + static_cast<int64_t>(row) * D;
-#pragma unroll
-    for (int i = 0; i < D; ++i) out[i] = acc[i] * inv_l;
-    if (lse != nullptr) lse[static_cast<int64_t>(bh) * t_len + row] = (m + log2f(l)) * kLn2;
+// Column e (of D / 8) of lane j's share of a p.v output row: float4 groups
+// 32h + 4j (D 32, 64) or the pair 2j (D 16), so a quarter warp's 8 lanes read
+// 128 (64) contiguous bytes of a v row.
+template <int D>
+__device__ __forceinline__ int out_col(int j, int e) {
+  if constexpr (D == 16) {
+    return 2 * j + e;
+  } else {
+    return 32 * (e / 4) + 4 * j + (e % 4);
   }
 }
 
 template <int D>
-void launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int t_len, bool bf16_in,
-            float scale, cudaStream_t stream) {
+__device__ __forceinline__ void load_cols(float (&dst)[D / 8], const float* row, int j) {
+  if constexpr (D == 16) {
+    const float2 t = *reinterpret_cast<const float2*>(row + 2 * j);
+    dst[0] = t.x, dst[1] = t.y;
+  } else {
+#pragma unroll
+    for (int h = 0; h < D / 32; ++h) {
+      const float4 t = *reinterpret_cast<const float4*>(row + 32 * h + 4 * j);
+      dst[4 * h] = t.x, dst[4 * h + 1] = t.y, dst[4 * h + 2] = t.z, dst[4 * h + 3] = t.w;
+    }
+  }
+}
+
+__device__ __forceinline__ float group8_max(float x) {
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float group8_sum(float x) {
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 2)
+attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                         float* __restrict__ o, float* __restrict__ lse, int t_len, int n_qtiles, float c) {
+  static_assert(D % 16 == 0 && D <= 64, "head dim 16, 32 or 64");
+  using L = F32Layout<D>;
+  constexpr int R = kF32RowsPerThread<D>;
+  constexpr int kRows = kF32BlockRows<D>;
+  constexpr int kCols = D / 8;  // output columns of a thread
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem + L::kQ;
+  float* pt = smem + L::kP;  // p^T: pt[key * kPRow + row]
+
+  const int bh = blockIdx.x / n_qtiles;
+  const int qtile = blockIdx.x - bh * n_qtiles;
+  const int tid = threadIdx.x;
+  const int g = tid >> 3;  // rows R*g .. R*g + R-1 of the block
+  const int j = tid & 7;   // keys j + 8i of s; output columns out_col(j, .)
+  const int q0 = qtile * kRows;
+  const int64_t base = static_cast<int64_t>(bh) * t_len * D;
+  const int n_tiles = (t_len + kTile - 1) / kTile;
+
+  stage_f32<D>(smem + L::kK, k + base, 0, t_len, tid);
+  stage_f32<D>(smem + L::kV, v + base, 0, t_len, tid);
+  cp_async_commit();
+  // q, pre-scaled by scale*log2(e) so that a score is a log2 weight; rows past T are 0
+#pragma unroll
+  for (int it = 0; it < kRows * (D / 4) / kF32Threads; ++it) {
+    const int i = tid + it * kF32Threads;
+    const int r = i / (D / 4);
+    const int col = 4 * (i - r * (D / 4));
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < t_len) val = __ldg(reinterpret_cast<const float4*>(q + base + static_cast<int64_t>(q0 + r) * D + col));
+    val.x *= c, val.y *= c, val.z *= c, val.w *= c;
+    *reinterpret_cast<float4*>(qs + q_slot<D>(r) * L::kRow + col) = val;
+  }
+
+  float m[R], l[R], acc[R][kCols];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = -INFINITY;  // running max of the row's scores (log2 units)
+    l[r] = 0.f;        // this lane's share of the row's sum of exp2(s - m)
+#pragma unroll
+    for (int e = 0; e < kCols; ++e) acc[r][e] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int cur = (t & 1) * L::kTileFloats;
+    cp_async_wait<0>();  // tile t has landed (this thread's copies) ...
+    __syncthreads();     // ... and every thread's; tile t - 1 is consumed everywhere
+    if (t + 1 < n_tiles) {  // into the buffers tile t - 1 used
+      stage_f32<D>(smem + L::kK + L::kTileFloats - cur, k + base, (t + 1) * kTile, t_len, tid);
+      stage_f32<D>(smem + L::kV + L::kTileFloats - cur, v + base, (t + 1) * kTile, t_len, tid);
+    }
+    cp_async_commit();
+
+    // s = q . k^T for rows R*g + r, keys j + 8i
+    const float* kt = smem + L::kK + cur;
+    float s[R][8];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s[r][i] = 0.f;
+#pragma unroll 2
+    for (int col = 0; col < D; col += 4) {
+      float4 qv[R], kv[8];
+#pragma unroll
+      for (int r = 0; r < R; ++r) qv[r] = *reinterpret_cast<const float4*>(qs + (r * 16 + g) * L::kRow + col);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) kv[i] = *reinterpret_cast<const float4*>(kt + (j + 8 * i) * L::kRow + col);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          s[r][i] = fmaf(qv[r].x, kv[i].x, s[r][i]);
+          s[r][i] = fmaf(qv[r].y, kv[i].y, s[r][i]);
+          s[r][i] = fmaf(qv[r].z, kv[i].z, s[r][i]);
+          s[r][i] = fmaf(qv[r].w, kv[i].w, s[r][i]);
+        }
+    }
+    const int key0 = t * kTile;
+    if (key0 + kTile > t_len) {  // keys past T score -inf
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (key0 + j + 8 * i >= t_len)
+#pragma unroll
+          for (int r = 0; r < R; ++r) s[r][i] = -INFINITY;
+    }
+
+    // online softmax; key0 < T, so lane 0 of every group holds a finite score
+    // and m_new is finite; at t = 0, alpha = exp2(-inf) = 0 clears the empty sums
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float mx = s[r][0];
+#pragma unroll
+      for (int i = 1; i < 8; ++i) mx = fmaxf(mx, s[r][i]);
+      const float m_new = fmaxf(m[r], group8_max(mx));
+      const float alpha = exp2f(m[r] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        s[r][i] = exp2f(s[r][i] - m_new);
+        sum += s[r][i];
+      }
+      l[r] = l[r] * alpha + sum;
+#pragma unroll
+      for (int e = 0; e < kCols; ++e) acc[r][e] *= alpha;
+      m[r] = m_new;
+    }
+
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int h = 0; h < R / 4; ++h)
+        *reinterpret_cast<float4*>(pt + (j + 8 * i) * L::kPRow + R * g + 4 * h) =
+            make_float4(s[4 * h][i], s[4 * h + 1][i], s[4 * h + 2][i], s[4 * h + 3][i]);
+    // p^T complete for this row group: its rows are written and read by the
+    // group's own 8 lanes, which lie in one warp
+    __syncwarp();
+
+    // acc += p . v for rows R*g + r, columns out_col(j, .)
+    const float* vt = smem + L::kV + cur;
+#pragma unroll 8
+    for (int key = 0; key < kTile; ++key) {
+      float p[R];
+#pragma unroll
+      for (int h = 0; h < R / 4; ++h) {
+        const float4 ph = *reinterpret_cast<const float4*>(pt + key * L::kPRow + R * g + 4 * h);
+        p[4 * h] = ph.x, p[4 * h + 1] = ph.y, p[4 * h + 2] = ph.z, p[4 * h + 3] = ph.w;
+      }
+      float vv[kCols];
+      load_cols<D>(vv, vt + key * L::kRow, j);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int e = 0; e < kCols; ++e) acc[r][e] = fmaf(p[r], vv[e], acc[r][e]);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float sum = group8_sum(l[r]);
+    const int row = q0 + R * g + r;
+    if (row >= t_len) continue;
+    const float inv = 1.f / sum;
+    float* out = o + base + static_cast<int64_t>(row) * D;
+    if constexpr (D == 16) {
+      *reinterpret_cast<float2*>(out + 2 * j) = make_float2(acc[r][0] * inv, acc[r][1] * inv);
+    } else {
+#pragma unroll
+      for (int h = 0; h < D / 32; ++h)
+        *reinterpret_cast<float4*>(out + out_col<D>(j, 4 * h)) =
+            make_float4(acc[r][4 * h] * inv, acc[r][4 * h + 1] * inv, acc[r][4 * h + 2] * inv, acc[r][4 * h + 3] * inv);
+    }
+    if (lse != nullptr && j == 0) lse[static_cast<int64_t>(bh) * t_len + row] = (m[r] + log2f(sum)) * kLn2;
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int t_len,
+                   bool bf16_in, float scale, cudaStream_t stream) {
   const float c = scale * kLog2e;  // softmax via exp2
   if (bf16_in) {
     const int n_qtiles = (t_len + kTile - 1) / kTile;
@@ -202,17 +377,22 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse, in
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<bf16*>(o), lse, t_len, n_qtiles, c);
   } else {
-    const int n_qtiles = (t_len + kF32Rows - 1) / kF32Rows;
-    attention_fwd_f32_kernel<D><<<static_cast<unsigned>(bh) * n_qtiles, kF32Rows, 0, stream>>>(
+    constexpr int bytes = F32Layout<D>::kBytes;
+    const cudaError_t err =
+        cudaFuncSetAttribute(attention_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    const int n_qtiles = (t_len + kF32BlockRows<D> - 1) / kF32BlockRows<D>;
+    attention_fwd_f32_kernel<D><<<static_cast<unsigned>(bh) * n_qtiles, kF32Threads, bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(o), lse, t_len, n_qtiles, c);
   }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. lse: f32 (BH, T) output, or null to skip
-// it. bf16 rows must start 16-byte aligned (contiguous tensors do). Returns a
+// it. Rows must start 16-byte aligned (contiguous tensors do). Returns a
 // cudaError_t (0 = success).
 extern "C" int s2s_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                                  int t_len, int d, int dtype, float scale, void* stream) {
@@ -222,16 +402,12 @@ extern "C" int s2s_attention_fwd(const void* q, const void* k, const void* v, vo
   float* lp = static_cast<float*>(lse);
   switch (d) {
     case 16:
-      launch<16>(q, k, v, o, lp, bh, t_len, dtype == 1, scale, s);
-      break;
+      return static_cast<int>(launch<16>(q, k, v, o, lp, bh, t_len, dtype == 1, scale, s));
     case 32:
-      launch<32>(q, k, v, o, lp, bh, t_len, dtype == 1, scale, s);
-      break;
+      return static_cast<int>(launch<32>(q, k, v, o, lp, bh, t_len, dtype == 1, scale, s));
     case 64:
-      launch<64>(q, k, v, o, lp, bh, t_len, dtype == 1, scale, s);
-      break;
+      return static_cast<int>(launch<64>(q, k, v, o, lp, bh, t_len, dtype == 1, scale, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -37,11 +37,19 @@ __device__ __forceinline__ uint32_t mix32(uint32_t v) {
   return v;
 }
 
-__device__ __forceinline__ float sigmoid(float z) { return __frcp_rn(1.f + __expf(-z)); }
+// 2^x, flushing a result below 2^-126 to 0 (1 + that is 1 either way in the
+// sigmoid below): the single MUFU op, without __expf's denormal fix-up.
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-// z = x*scale + shift rounded as the plain version rounds it (no FMA contraction).
-__device__ __forceinline__ float affine(const Prologue& p, float x, int bc) {
-  return p.scale ? __fadd_rn(__fmul_rn(x, __ldg(p.scale + bc)), __ldg(p.shift + bc)) : x;
+// 1 / (1 + e^-z) with the approximate exponential and reciprocal: about 2 ulp
+// of f32, far below the bf16 rounding of n or dx. Below z = -88, e^-z is inf
+// and the result 0. The one sigmoid of K2, K4 and K5.
+__device__ __forceinline__ float sigmoid(float z) {
+  return __fdividef(1.f, 1.f + ex2_ftz(z * -1.4426950408889634f));
 }
 
 // The element's keep factor: keep_scale or 0. `index` is the NHWC element index.
@@ -96,19 +104,10 @@ __device__ __forceinline__ void with_kind(const Prologue& p, F&& f) {
   }
 }
 
-// 2^x, flushing a result below 2^-126 to 0 (1 + that is 1 either way in the
-// sigmoid below): the single MUFU op, without __expf's denormal fix-up.
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Eight consecutive channels of one pixel, raw bf16 -> normalized bf16, with
 // the channels' factors from channel_factors; `index` is the NHWC element
-// index of the first. z*s + t rounds as the plain version rounds it; the
-// sigmoid takes the approximate exponential and reciprocal (about 2 ulp of
-// f32, far below the bf16 rounding of n).
+// index of the first. z*s + t rounds as the plain version rounds it (no FMA
+// contraction).
 template <class K>
 __device__ __forceinline__ uint4 prologue8(K, uint4 raw, const Prologue& p, const float (&s)[8],
                                            const float (&t)[8], uint32_t index) {
@@ -125,7 +124,7 @@ __device__ __forceinline__ uint4 prologue8(K, uint4 raw, const Prologue& p, cons
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         if constexpr (K::affine) n[e] = __fadd_rn(__fmul_rn(n[e], s[2 * j + e]), t[2 * j + e]);
-        if constexpr (K::silu) n[e] = n[e] * __fdividef(1.f, 1.f + ex2_ftz(n[e] * -1.4426950408889634f));
+        if constexpr (K::silu) n[e] = n[e] * sigmoid(n[e]);
         if constexpr (K::dropout) n[e] = n[e] * keep(p, index + 2 * j + e);
       }
       o[j] = __floats2bfloat162_rn(n[0], n[1]);

@@ -1,8 +1,8 @@
 // Warp-level tensor-core and asynchronous-copy primitives for Hopper (sm_90a),
 // used by the attention kernels (attention_fwd.cu, attention_bwd.cu): ldmatrix,
 // mma.sync m16n8k16 bf16 with f32 accumulators, and 16-byte cp.async with zero
-// fill. The fused-conv kernels use the warpgroup primitives of
-// wgmma_common.cuh instead.
+// fill, which K4 (prologue_grad.cu) uses too. The conv kernels K2/K3 and K5 use
+// the warpgroup primitives of wgmma_common.cuh instead.
 
 #pragma once
 

@@ -49,6 +49,33 @@ FLAGSHIP = [
 ]
 
 
+def _flagship_k4_shapes():
+    """(H·W, C) of each of the 44 K4 launches of one fused flagship backward at
+    256 px: the input of both convs of each of the 22 ResBlocks of ADM's UNet
+    with 128 channels, mult (1, 2, 2, 4) and 2 res-blocks a level (8 down, 2
+    in the middle, 12 up, the up blocks' inputs widened by the skip concat)."""
+    mult, blocks, base, side = (1, 2, 2, 4), 2, 128, 256
+    shapes, skips, ch = [], [base], base
+    for level, m in enumerate(mult):
+        hw = (side >> level) ** 2
+        for _ in range(blocks):
+            shapes += [(hw, ch), (hw, base * m)]
+            ch = base * m
+            skips.append(ch)
+        if level < len(mult) - 1:
+            skips.append(ch)  # the downsampler's output
+    shapes += [((side >> 3) ** 2, ch)] * 4  # the middle's two ResBlocks
+    for level, m in reversed(list(enumerate(mult))):
+        hw = (side >> level) ** 2
+        for _ in range(blocks + 1):
+            shapes += [(hw, ch + skips.pop()), (hw, base * m)]
+            ch = base * m
+    return shapes
+
+
+FLAGSHIP_K4 = _flagship_k4_shapes()
+
+
 def _close(got, want, rtol, atol):
     got = np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
@@ -120,10 +147,17 @@ def test_input_grad_matches_jax(B, H, W, C, D):
     _close(got.float(), want, **BF16_TOL)
 
 
-@pytest.mark.parametrize("affine", [True, False], ids=["affine_silu", "plain"])
-def test_prologue_grad_matches_jax(affine):
-    d = _inputs()
-    dn = _inputs(D=128, seed=1)["dy"]  # (B, H, W, C) bf16-representable
+@pytest.mark.parametrize(
+    "shape,affine",
+    [((2, 32, 16, 128), True), ((2, 32, 16, 128), False), (RAGGED[:4], True), (RAGGED[:4], False)],
+    ids=["affine_silu", "plain", "ragged_affine_silu", "ragged_plain"],
+)
+def test_prologue_grad_matches_jax(shape, affine):
+    """At the ragged shape (H 20, C 384) too: 320 pixels an image, so K4's
+    walk ends inside a 64-pixel step and C spans six 64-channel blocks."""
+    B, H, W, C = shape
+    d = _inputs(B, H, W, C, C)
+    dn = _inputs(B, H, W, C, C, seed=1)["dy"]  # (B, H, W, C) bf16-representable
     kw_j = dict(scale=_j(d["scale"]), shift=_j(d["shift"]), act="silu") if affine else {}
     kw_t = dict(scale=_t(d["scale"]), shift=_t(d["shift"]), act="silu") if affine else {}
     want = pc.prologue_grad(_j(d["x"], jnp.bfloat16), _j(dn, jnp.bfloat16), interpret=True, **kw_j)
@@ -365,6 +399,38 @@ def test_wgrad_geometry_covers_each_tile_once_within_the_scratch_budget(hw, c, d
     assert splits == 1 or splits * blocks <= sms
     if splits < tiles:
         assert (splits + 1) * blocks > sms
+
+
+def test_flagship_k4_shapes_are_the_fused_convs_inputs():
+    assert len(FLAGSHIP_K4) == 44
+    assert {(hw, c) for hw, c, _ in FLAGSHIP} < set(FLAGSHIP_K4)
+    assert all(conv.supported((32, int(hw ** 0.5), int(hw ** 0.5), c), (3, 3, c, 128)) for hw, c in FLAGSHIP_K4)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+@pytest.mark.parametrize("hw,c", sorted(set(FLAGSHIP_K4)) + [(RAGGED[1] * RAGGED[2], RAGGED[3])])
+def test_prologue_grad_geometry_covers_each_pixel_once(hw, c, sms):
+    """K4's slices (``conv.prologue_grad_geometry``), walked as the kernel walks
+    them: each block's 16 pixel lanes step 64 pixels at a time through its
+    slice, so every pixel of every image is reduced exactly once and written
+    into the block's own partial, inside the (2, B, slices, C) scratch; at the
+    flagship's shapes (batch 32) the grid fills at least two waves of the
+    card's K4 occupancy."""
+    b = RAGGED[0] if (hw, c) == (RAGGED[1] * RAGGED[2], RAGGED[3]) else 32
+    slice_px, slices = conv.prologue_grad_geometry(b, hw, c, sms)
+    assert slice_px % conv._K4_STEP_PX == 0 and slices == -(-hw // slice_px)
+    walked = []
+    for s in range(slices):
+        p_end = min(hw, (s + 1) * slice_px)
+        for p0 in range(s * slice_px, p_end, conv._K4_STEP_PX):
+            walked += [p for p in range(p0, p0 + conv._K4_STEP_PX) if p < p_end]
+    assert walked == list(range(hw))
+    last_partial = ((b - 1) * slices + slices - 1) * c + c - 1
+    assert last_partial < b * slices * c
+    assert 2 * b * slices * c * 4 <= 16 * 2**20
+    blocks = b * slices * (c // conv._K4_CHANNELS)
+    if b == 32:
+        assert blocks >= 2 * conv._K4_BLOCKS_PER_SM * sms
 
 
 def test_wrappers_refuse_other_devices_and_bad_arguments():

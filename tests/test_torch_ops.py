@@ -83,7 +83,7 @@ def test_group_norm_keeps_dtype_and_handles_zero_variance():
     assert torch.isfinite(y.float()).all()
 
 
-@pytest.mark.parametrize("b,t,h,d", [(2, 16, 4, 8), (1, 37, 2, 32)])
+@pytest.mark.parametrize("b,t,h,d", [(2, 16, 4, 8), (1, 37, 2, 32), (1, 70, 2, 16), (2, 70, 1, 64)])
 def test_attention_matches_jax_einsum(b, t, h, d):
     rng = np.random.default_rng(2)
     q, k, v = (rng.standard_normal((b, t, h, d)).astype(np.float32) for _ in range(3))
