@@ -9,21 +9,24 @@ Phases (any failure ends the script with a non-zero exit and no result line):
 2. Build: every CUDA kernel of the port from ``stain2stain_tpu_torch/csrc``
    with ``nvcc`` (one process per source, all at once), with ptxas' report.
    ptxas must report no spills for the kernels of ``SPILL_CHECKED``: the
-   bf16 attention kernels, the f32 K1-fwd kernel, the wgmma kernels of K2/K3
-   and K5, and K4.
+   bf16 attention kernels, the f32 K1-fwd kernel, the six 3xTF32 kernels of
+   the f32 K1-bwd (passes 2 and 3 at d 16, 32, 64), the wgmma kernels of
+   K2/K3 and K5, and K4.
 3. K1-fwd (``csrc/attention_fwd.cu``) against its plain PyTorch version on
    the card, output and row log-sum-exp, with the stated tolerances: the
-   serving shapes (f32 and bf16), the training shape (bf16, with the lse that
-   training saves), d 16 and d 64 (both dtypes), T 4096, ragged T, peaked
-   logits (q × 8); times of the kernel (per call, ``ms``, and queued device
-   time, ``queued_ms``, see :func:`cuda_queued_ms`), the plain version and
+   serving shapes (f32 and bf16), the training shapes (bf16 at 256 px, f32
+   at 512 px, with the lse that training saves), d 16 and d 64 (both
+   dtypes), T 4096, ragged T, peaked logits (q × 8); times of the kernel
+   (per call, ``ms``, and queued device time, ``queued_ms``, see
+   :func:`cuda_queued_ms`), the plain version and
    ``scaled_dot_product_attention`` (a yardstick only, never used by the
    port) beside the bound computed from the shape.
 4. K1-bwd (``csrc/attention_bwd.cu``) against its plain version (the
    explicit backward, itself checked against torch autograd through the
-   plain forward) at the same kinds of shapes, through both routes: the lse
-   from K1-fwd given (training's route) and recomputed; each run twice, equal
-   bit for bit; times of both routes, the plain version and the backward of
+   plain forward) at the same kinds of shapes (f32 first at the 512-px f32
+   training shape (96, 4096, 32)), through both routes: the lse from K1-fwd
+   given (training's route) and recomputed; each run twice, equal bit for
+   bit; times of both routes, the plain version and the backward of
    ``scaled_dot_product_attention`` (yardstick only) beside the bound.
 5. The serving path at full width: ``configs/`` composed through the port's
    config code, the flagship UNet (``model=conditional_flow_matching``, about
@@ -43,34 +46,43 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    validation, checkpoints, test from the best checkpoint. The launch counts
    are zeroed just before and read just after: K1-bwd must have launched once
    per backward pass, K1-fwd once per net forward.
-8. One f32 train step of the flagship (batch 2, 256 px, dropout 0) on the
+8. ``train-f32``: the same entry point in f32 at the reference's 512-px
+   operating point (``trainer.precision=32``, 512-px tiles, batch 6, 48
+   training tiles: 8 steps, validation, checkpoints, test), torch's default
+   TF32 settings: K1-fwd and K1-bwd in f32 (the 3xTF32 backward), once per
+   net forward and once per step; K2–K5 never.
+9. One f32 train step of the flagship (batch 2, 256 px, dropout 0) on the
    card with TF32 off against the same step through the plain path on the
    CPU: loss and every parameter gradient.
-9. K2–K5 (``csrc/conv3x3_fwd.cu`` as K2 and K3, ``csrc/prologue_grad.cu``,
-   ``csrc/conv3x3_wgrad.cu``) against their plain versions on the card at the
-   flagship's first-level shape (B 32, 256², C = D = 128), its largest-C
-   shape (B 32, 32², C 1024 → D 512) and a ragged one (B 3, H 20, W 48,
-   C 384 → D 256: H past the last whole row tile, the level-0 skip-concat
-   width), bf16, affine + SiLU, dropout 0.1, with the stated tolerances;
-   times of each kernel, its plain version and the cuDNN call for the same
-   function (a yardstick only, never used by the port) beside the bound
-   computed from the shape; K4 and K5 run twice and must agree bit for bit;
-   K2 with an identity centre tap must reproduce ``hash_mask``'s dropout mask
-   bit for bit. Then the sweep: K2, K3 and K5 against cuDNN, and K4 (per call
-   and queued) against its bound, at each distinct conv shape of the fused
-   flagship (recorded from one net forward), with its launches per train
-   step and the launch-weighted totals per step.
-10. The training path of phase 7 again with ``+model.net.fused_conv=true``
+10. K2–K5 (``csrc/conv3x3_fwd.cu`` as K2 and K3, ``csrc/prologue_grad.cu``,
+    ``csrc/conv3x3_wgrad.cu``) against their plain versions on the card at
+    the flagship's first-level shape (B 32, 256², C = D = 128), its
+    largest-C shape (B 32, 32², C 1024 → D 512) and a ragged one (B 3, H 20,
+    W 48, C 384 → D 256: H past the last whole row tile, the level-0
+    skip-concat width), bf16, affine + SiLU, dropout 0.1, with the stated
+    tolerances; times of each kernel, its plain version and the cuDNN call
+    for the same function (a yardstick only, never used by the port) beside
+    the bound computed from the shape; K4 and K5 run twice and must agree
+    bit for bit; K2 with an identity centre tap must reproduce
+    ``hash_mask``'s dropout mask bit for bit. Then the sweep: K2, K3 and K5
+    against cuDNN, and K4 (per call and queued) against its bound, at each
+    distinct conv shape of the fused flagship (recorded from one net
+    forward), with its launches per train step and the launch-weighted
+    totals per step.
+11. The training path of phase 7 again with ``+model.net.fused_conv=true``
     on the same synthetic data: K2 must have launched 44 times per net
     forward (22 ResBlocks × 2 convs) and K3, K4, K5 44 times per backward
-    pass; the phase-7 run must have launched none of them.
-11. One bf16 train step of the fused flagship (batch 2, 256 px, dropout 0.1
+    pass; the runs of phases 7 and 8 must have launched none of them.
+12. One bf16 train step of the fused flagship (batch 2, 256 px, dropout 0.1
     from one generator seed) on the card (K2–K5) against the same step on
     the CPU (their plain versions): loss and every parameter gradient; and
     the fused against the unfused net on the card, same weights, eval.
-12. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5, each with ``ms`` and
-    ``queued_ms``), the card line, and ``{"ok": true, "device": ...}`` as the
-    last line.
+13. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5, each with ``ms`` and
+    ``queued_ms``, and launches by path), the card line, and ``{"ok": true,
+    "device": ...}`` as the last line.
+
+With ``--profile`` it also profiles a tile batch and a request, and a train
+step of each path (``phase_profile_train``).
 
 It exits non-zero, printing no result, when no CUDA card is present or when
 the port's package is not beside it.
@@ -95,10 +107,12 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor cores,
-# f32 outside the tensor cores (the K1 kernel keeps f32 products for f32
-# inputs), HBM3 bandwidth. The exponential rate comes from the card itself:
-# 16 MUFU ex2 results per clock per SM at the card's maximum SM clock.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# f32 outside the tensor cores (the f32 K1-fwd keeps f32 products on the FP32
+# pipes; every kernel's bound_ms for f32 inputs counts f32 work there), TF32
+# tensor cores (the f32 K1-bwd runs its products as 3xTF32 there), HBM3
+# bandwidth. The exponential rate comes from the card itself: 16 MUFU ex2
+# results per clock per SM at the card's maximum SM clock.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tfloat32": 494e12}
 PEAK_BYTES_PER_S = 3.35e12
 MUFU_EX2_PER_CLK_PER_SM = 16
 
@@ -204,11 +218,11 @@ def attention_bound(bh: int, t: int, d: int, dtype: str, exp_per_s: float, lse: 
 
 
 # the kernels ptxas must compile without spills: the bf16 attention kernels of
-# K1-fwd and K1-bwd, the register-tiled f32 K1-fwd, the wgmma kernels of K2/K3
-# and K5, and K4
+# K1-fwd and K1-bwd, the register-tiled f32 K1-fwd, the 3xTF32 passes of the
+# f32 K1-bwd, the wgmma kernels of K2/K3 and K5, and K4
 SPILL_CHECKED = {
     "attention_fwd.cu": ("mma_kernel", "f32_kernel"),
-    "attention_bwd.cu": ("mma_kernel", "prep"),
+    "attention_bwd.cu": ("mma_kernel", "tf32_kernel", "prep"),
     "conv3x3_fwd.cu": ("conv3x3_fwd_kernel",),
     "prologue_grad.cu": ("prologue_grad_kernel",),
     "conv3x3_wgrad.cu": ("conv3x3_wgrad_kernel",),
@@ -231,7 +245,7 @@ def checked_spills(build_logs: dict) -> dict:
             found = re.search(r"(\d+) bytes spill stores", line)
             if not (found and name and any(k in name for k in keys)):
                 continue
-            if src == "attention_bwd.cu" and "mma_kernel" not in name and "bfloat16" not in name:
+            if src == "attention_bwd.cu" and "prep" in name and "bfloat16" not in name:
                 continue  # K1-bwd's f32 prep pass: SIMT, not checked
             spills[f"{src}:{name}"] = int(found.group(1))
     return spills
@@ -253,6 +267,8 @@ def phase_kernels(exp_per_s: float) -> dict:
     # (one bf16 ulp of a value in [2, 4) is 0.016).
     cases = [
         (256, 1024, 32, "float32", 1.0, False, "256-px serving shape, f32 (the config's dtype: the main path)"),
+        (96, 4096, 32, "float32", 1.0, True,
+         "512-px f32 training shape (batch 6, 16 heads), lse saved: train-f32's call"),
         (256, 1024, 32, "bfloat16", 1.0, False, "256-px serving shape, bf16"),
         (512, 1024, 32, "bfloat16", 1.0, True, "256-px training shape (batch 32), bf16, lse saved: training's call"),
         (256, 1024, 16, "bfloat16", 1.0, False, "d 16, bf16"),
@@ -314,6 +330,9 @@ def attention_bwd_bound(bh: int, t: int, d: int, dtype: str, exp_per_s: float) -
         # the kernel's own design (no atomics): s and dp computed in both the
         # dk/dv and the dq pass, so seven products and two exponentials per p
         "design_bound_ms": max(bytes_ms, 1.4 * flop_ms, 2 * exp_ms),
+        # f32: the five products as 3xTF32 (three tensor-core products each)
+        "tf32x3_bound_ms": (3 * 10 * bh * t * t * d / PEAK_FLOPS["tfloat32"] * 1e3
+                            if dtype == "float32" else None),
     }
 
 
@@ -334,11 +353,15 @@ def phase_k1_bwd(exp_per_s: float) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [  # (BH, T, d, dtype, q scale, what)
         (512, 1024, 32, "bfloat16", 1.0, "256-px training shape (batch 32, 16 heads), bf16: the main path"),
+        (96, 4096, 32, "float32", 1.0, "512-px f32 training shape (batch 6, 16 heads): the train-f32 path"),
         (512, 1024, 32, "float32", 1.0, "256-px training shape, f32"),
         (64, 4096, 32, "bfloat16", 1.0, "512-px mid block at batch 4, bf16"),
         (256, 1024, 16, "bfloat16", 1.0, "d 16, bf16"),
         (128, 1024, 64, "bfloat16", 1.0, "d 64, bf16"),
         (64, 1024, 32, "bfloat16", 8.0, "peaked logits (q x 8), bf16"),
+        (256, 1024, 16, "float32", 1.0, "d 16, f32"),
+        (128, 1024, 64, "float32", 1.0, "d 64, f32"),
+        (64, 1024, 32, "float32", 8.0, "peaked logits (q x 8), f32"),
         (16, 1000, 32, "float32", 1.0, "ragged T, f32"),
         (16, 1000, 32, "bfloat16", 1.0, "ragged T, bf16"),
     ]
@@ -826,12 +849,37 @@ TRAIN_OVERRIDES = [
     "trainer.check_val_every_n_epoch=1",
     "test=true",
 ]
+# f32 training at the reference's he2ihc_CF_new_data operating point (512 px,
+# batch 6 a device, trainer.precision 32, the trainer's default): synthetic
+# pairs in place of its CSV tiles, 48 of them for 8 steps
+TRAIN_F32_OVERRIDES = [
+    "experiment=quality_synthetic_256",
+    "trainer.accelerator=gpu",
+    "trainer.precision=32",
+    "data.tile_size=512",
+    "data.image_size=512",
+    "data.batch_size=6",
+    "data.n_train=48",
+    "data.n_val=12",
+    "data.n_test=12",
+    "trainer.max_epochs=1",
+    "trainer.check_val_every_n_epoch=1",
+    "test=true",
+]
+# each training path: its overrides and the folder of its synthetic data
+TRAIN_PATHS = {
+    "train": (TRAIN_OVERRIDES, "data"),
+    "train-fused": (TRAIN_OVERRIDES + [FUSED_OVERRIDE], "data"),
+    "train-f32": (TRAIN_F32_OVERRIDES, "data-512"),
+}
 
 
-def phase_train(card: str, work: Path, fused: bool = False) -> dict:
-    """The training path at full width through ``stain2stain_tpu_torch.train``;
-    ``fused`` adds ``+model.net.fused_conv=true`` (the ResBlocks through K2–K5).
-    The synthetic data under ``work/data`` is made once and reused."""
+def phase_train(card: str, work: Path, name: str = "train") -> dict:
+    """A training path of ``TRAIN_PATHS`` at full width through
+    ``stain2stain_tpu_torch.train``: ``train`` (bf16-mixed, 256 px, batch 32),
+    ``train-fused`` (the same with ``+model.net.fused_conv=true``: the
+    ResBlocks through K2–K5), ``train-f32`` (f32, 512 px, batch 6). The
+    synthetic data under ``work`` is made once per folder and reused."""
     import torch
 
     from stain2stain_tpu_torch.config import compose
@@ -840,15 +888,16 @@ def phase_train(card: str, work: Path, fused: bool = False) -> dict:
     from stain2stain_tpu_torch.train import train
 
     torch.backends.cuda.matmul.allow_tf32 = False  # torch's defaults for training:
-    torch.backends.cudnn.allow_tf32 = True  # f32 matmul, TF32 cuDNN convs (bf16 here anyway)
-    name = "train-fused" if fused else "train"
-    overrides = TRAIN_OVERRIDES + ([FUSED_OVERRIDE] if fused else []) + [f"data.data_dir={work / 'data'}"]
+    torch.backends.cudnn.allow_tf32 = True  # f32 matmul, TF32 cuDNN convs
+    fused = name == "train-fused"
+    path_overrides, data = TRAIN_PATHS[name]
+    overrides = path_overrides + [f"data.data_dir={work / data}"]
     cfg = compose(REPO / "configs", "train.yaml", overrides)
     cfg["runtime"] = {"output_dir": str(work / f"out-{name}"), "cwd": str(work)}
     cfg["extras"]["print_config"] = False
     log(f"{name}: " + " ".join(overrides))
 
-    cfg["callbacks"]["step_clock"] = {"_target_": "__main__.step_clock"}
+    cfg["callbacks"]["step_clock"] = {"_target_": f"{__name__}.step_clock"}  # as a script or imported
     torch.cuda.reset_peak_memory_stats()
     # ---- the main path: counts zeroed just before, read just after --------
     fused_attention.launches = 0
@@ -890,6 +939,8 @@ def phase_train(card: str, work: Path, fused: bool = False) -> dict:
         raise AssertionError("training wrote no best or last checkpoint")
     if bwd_launches == 0 or bwd_launches != steps:
         raise AssertionError(f"K1-bwd launches {bwd_launches} != backward passes {steps}")
+    if (name == "train-f32") != (summary["dtype"] == "torch.float32"):
+        raise AssertionError(f"{name} computed in {summary['dtype']}")
     if fwd_launches == 0 or fwd_launches != clock.forwards[0]:
         raise AssertionError(f"K1-fwd launches {fwd_launches} != net forward calls {clock.forwards[0]}")
     want_fwd, want_bwd = (FLAGSHIP_FUSED_CONVS * clock.forwards[0], FLAGSHIP_FUSED_CONVS * steps) if fused else (0, 0)
@@ -1107,8 +1158,10 @@ def _train_kernel_category(name: str) -> str:
     """A device kernel's layer, from its name."""
     if any(s in name for s in ("conv3x3_fwd_kernel", "prologue_grad", "conv3x3_wgrad_kernel", "wgrad_reduce")):
         return "fused conv K2-K5"
-    if "attention_" in name:
-        return "attention kernels K1-fwd/K1-bwd"
+    if "attention_fwd" in name:
+        return "attention forward K1-fwd"
+    if "attention_bwd" in name:
+        return "attention backward K1-bwd"
     if "nchwToNhwc" in name or "nhwcToNchw" in name:
         return "cuDNN layout transposes"
     if any(s in name for s in ("xmma", "gemm", "conv", "wgrad", "dgrad", "cutlass", "cudnn")):
@@ -1122,14 +1175,25 @@ def _train_kernel_category(name: str) -> str:
     return "other elementwise"
 
 
-def phase_profile_train(card: str, fused: bool = False) -> dict:
+# each profiled train step: (overrides, batch, pixels, trainer precision)
+PROFILED_STEPS = {
+    "profile-train": (["experiment=quality_synthetic_256", "trainer.accelerator=gpu"], 32, 256, "bf16-mixed"),
+    "profile-train-fused": (["experiment=quality_synthetic_256", "trainer.accelerator=gpu", FUSED_OVERRIDE], 32, 256,
+                            "bf16-mixed"),
+    "profile-train-f32": (["experiment=quality_synthetic_256", "trainer.accelerator=gpu", "trainer.precision=32"], 6,
+                          512, 32),
+}
+
+
+def phase_profile_train(card: str, name: str = "profile-train") -> dict:
     """Where the time of one train step goes (``--profile`` only).
 
-    The flagship task at batch 32, 256 px, bf16-mixed (with ``fused``:
-    ``+model.net.fused_conv=true``), through the trainer's own step
-    (augmentation, loss, backward, Adam), under ``torch.profiler`` for three
-    steps after two warm-up steps: device time by kernel, the device's busy
-    share of the wall time, and each kernel category's share.
+    The flagship task of ``PROFILED_STEPS[name]``: batch 32, 256 px,
+    bf16-mixed, unfused or with ``+model.net.fused_conv=true``; or batch 6,
+    512 px, f32. Through the trainer's own step (augmentation, loss,
+    backward, Adam), under ``torch.profiler`` for three steps after two
+    warm-up steps: device time by kernel, the device's busy share of the wall
+    time, and each kernel category's share.
     """
     import numpy as np
     import torch
@@ -1141,17 +1205,17 @@ def phase_profile_train(card: str, fused: bool = False) -> dict:
 
     torch.backends.cudnn.allow_tf32 = True  # torch's defaults for training
     torch.backends.cuda.matmul.allow_tf32 = False
-    overrides = ["experiment=quality_synthetic_256", "trainer.accelerator=gpu"] + ([FUSED_OVERRIDE] if fused else [])
+    overrides, batch_size, px, precision = PROFILED_STEPS[name]
     cfg = compose(REPO / "configs", "train.yaml", overrides)
-    name = "profile-train-fused" if fused else "profile-train"
     torch.manual_seed(0)
     task = instantiate(cfg.model, net=instantiate(cfg.model.net, device="cuda"), device="cuda")
-    trainer = Trainer(accelerator="gpu", precision="bf16-mixed", logger=False)
+    trainer = Trainer(accelerator="gpu", precision=precision, logger=False)
     trainer._prepare_task(task)
     trainer._init_state(task)
     rng = np.random.default_rng(0)
-    batch = tuple(torch.from_numpy(rng.integers(0, 256, (32, 256, 256, 3), dtype=np.uint8)).cuda() for _ in range(2))
-    augment = {"crop_size": 256, "hflip": True, "vflip": True}
+    batch = tuple(torch.from_numpy(rng.integers(0, 256, (batch_size, px, px, 3), dtype=np.uint8)).cuda()
+                  for _ in range(2))
+    augment = {"crop_size": px, "hflip": True, "vflip": True}
     for _ in range(2):
         trainer._train_step(task, batch, augment)
     torch.cuda.synchronize()
@@ -1173,13 +1237,15 @@ def phase_profile_train(card: str, fused: bool = False) -> dict:
         log(f"{name}-kernel " + json.dumps(r))
     # every kernel of the port, in or out of the top rows: its device ms a step
     ours = {e.key[:60]: dict(device_ms=_device_us(e) / 1e3 / steps, calls=e.count / steps) for e in kernels
-            if _train_kernel_category(e.key) in ("fused conv K2-K5", "attention kernels K1-fwd/K1-bwd")}
+            if _train_kernel_category(e.key) in ("fused conv K2-K5", "attention forward K1-fwd",
+                                                 "attention backward K1-bwd")}
     log(f"{name}-port-kernels " + json.dumps(ours))
     shares: dict[str, float] = {}
     for e in kernels:
         category = _train_kernel_category(e.key)
         shares[category] = shares.get(category, 0.0) + _device_us(e) / busy_us
-    result = dict(card=card, steps=steps, per_step_wall_ms=wall_us / 1e3 / steps,
+    result = dict(card=card, batch=batch_size, px=px, precision=precision, steps=steps,
+                  per_step_wall_ms=wall_us / 1e3 / steps,
                   per_step_device_busy_ms=busy_us / 1e3 / steps,
                   device_idle_share=max(0.0, 1.0 - busy_us / wall_us),
                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -1234,6 +1300,8 @@ def main() -> int:
     spills = checked_spills(build_logs)
     log("ptxas-spills " + json.dumps(spills))
     missing = [src for src in SPILL_CHECKED if not any(k.startswith(src + ":") for k in spills)]
+    if sum("tf32_kernel" in k for k in spills) != 6:  # K1-bwd's f32 passes 2 and 3 at D 16, 32, 64
+        missing.append("the six 3xTF32 kernels of attention_bwd.cu")
     if missing or any(spills.values()):
         raise AssertionError(f"ptxas spilled in a checked kernel, or reported none for {missing}: {spills}")
 
@@ -1257,29 +1325,36 @@ def main() -> int:
         train_summary = phase_train(card, Path(work))
         torch.cuda.empty_cache()
 
-        # 8. f32 gradients, card vs CPU
+        # 8. f32 training at 512 px, batch 6: the f32 K1-fwd and K1-bwd
+        f32_summary = phase_train(card, Path(work), "train-f32")
+        torch.cuda.empty_cache()
+        if args.profile:
+            phase_profile_train(card, "profile-train-f32")
+            torch.cuda.empty_cache()
+
+        # 9. f32 gradients, card vs CPU
         grad = phase_grad_parity()
         if args.profile:
             torch.cuda.empty_cache()
             phase_profile_train(card)
 
-        # 9. K2-K5 against their plain versions
+        # 10. K2-K5 against their plain versions
         torch.cuda.empty_cache()
         convs = phase_conv_kernels(exp_per_s)
         phase_conv_sweep(exp_per_s)
 
-        # 10. the training path with fused_conv=true, on the same synthetic data
+        # 11. the training path with fused_conv=true, on the same synthetic data
         torch.cuda.empty_cache()
-        fused_summary = phase_train(card, Path(work), fused=True)
+        fused_summary = phase_train(card, Path(work), "train-fused")
     torch.cuda.empty_cache()
 
-    # 11. the fused path's bf16 gradients, card vs CPU
+    # 12. the fused path's bf16 gradients, card vs CPU
     fused_grad = phase_fused_grad_parity()
     if args.profile:
         torch.cuda.empty_cache()
-        phase_profile_train(card, fused=True)
+        phase_profile_train(card, "profile-train-fused")
 
-    # 12. result lines
+    # 13. result lines
     def row(name, source, replaces, case, launches, by_path, passed):
         return {
             "name": name,
@@ -1315,11 +1390,12 @@ def main() -> int:
         row("attention_fwd (K1-fwd)", "stain2stain_tpu_torch/csrc/attention_fwd.cu",
             "stain2stain_tpu/ops/pallas_attention.py:64", k1["cases"][0], summary["k1_launches"],
             {"serve": summary["k1_launches"], "train": train_summary["k1_fwd_launches"],
-             "train_fused": fused_summary["k1_fwd_launches"]},
+             "train_f32": f32_summary["k1_fwd_launches"], "train_fused": fused_summary["k1_fwd_launches"]},
             all(c["ok"] for c in k1["cases"]) and parity["ok"]),
         row("attention_bwd (K1-bwd)", "stain2stain_tpu_torch/csrc/attention_bwd.cu",
             "stain2stain_tpu/ops/pallas_attention.py:78", k1_bwd["cases"][0], train_summary["k1_bwd_launches"],
-            {"train": train_summary["k1_bwd_launches"], "train_fused": fused_summary["k1_bwd_launches"]},
+            {"train": train_summary["k1_bwd_launches"], "train_f32": f32_summary["k1_bwd_launches"],
+             "train_fused": fused_summary["k1_bwd_launches"]},
             all(c["ok"] for c in k1_bwd["cases"]) and grad["ok"]),
     ] + [
         row(title, f"stain2stain_tpu_torch/csrc/{source}", replaces, convs["rows"][k][0], fused_summary[key],

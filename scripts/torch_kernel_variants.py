@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""The design choices of the f32 attention forward (K1-fwd f32) and of the
-prologue gradient (K4), each timed against the kernel as the port runs it.
+"""The design choices of the f32 attention forward (K1-fwd f32), of the f32
+attention backward (K1-bwd f32) and of the prologue gradient (K4), each timed
+against the kernel as the port runs it.
 
-Builds ``stain2stain_tpu_torch/csrc/attention_fwd.cu`` and
-``csrc/prologue_grad.cu`` whole and with one choice undone (edits of a copy of
-the source; the script stops if an edit no longer applies), and times every
-build in turns, whole first, then each variant, then the same in reverse, as
-queued device time (``chip_smoke.cuda_queued_ms``). Every build but
-``no_second_pass`` computes the same function and is checked against the
-plain version.
+Builds ``stain2stain_tpu_torch/csrc/attention_fwd.cu``,
+``csrc/attention_bwd.cu`` and ``csrc/prologue_grad.cu`` whole and with one
+choice undone (edits of a copy of the source; the script stops if an edit no
+longer applies), and times every build in turns, whole first, then each
+variant, then the same in reverse, as queued device time
+(``chip_smoke.cuda_queued_ms``). Every build but ``no_second_pass``,
+``one_term_tf32`` and ``chain_sums`` computes the same function and is
+checked against the plain version.
 
 K1-fwd f32 (the serving shape (BH 256, T 1024, d 32) and d 16):
 
@@ -18,6 +20,26 @@ K1-fwd f32 (the serving shape (BH 256, T 1024, d 32) and d 16):
 - ``two_barriers``: a block barrier instead of ``__syncwarp`` before p·v;
 - ``s_unroll_8``: the s loop unrolled fully instead of by 2;
 - ``pv_unroll_4``: the p·v loop unrolled by 4 instead of 8.
+
+K1-bwd f32 with the forward's lse (the 256-px training shape (BH 512, T 1024,
+d 32) and the 512-px f32 one (96, 4096, 32)):
+
+- ``one_term_tf32``: big·big only, 1xTF32 (fails the f32 budget: timing
+  only; the small halves are still staged);
+- ``split_at_use``: the staged tiles split where each warp loads a B
+  fragment, not once where they land (no small tiles in shared memory), at
+  d 16 and 32 as at d 64;
+- ``cvt_rna``: the split by the ``cvt.rna.tf32.f32`` instruction instead of
+  integer operations;
+- ``chain_sums``: the three products of each mma triple summed into the
+  accumulator itself, not into a fresh partial added in f32 (the tensor
+  cores' sums then drift past the f32 budget at T 4096: timing only);
+- ``pair_partials``: q·kᵀ-type products sum two slices of d (6 mma's) into
+  each fresh partial instead of one (half the f32 adds);
+- ``columns_16``: a warp's column step takes 16 rows of the staged tile
+  instead of 8 (more products in flight, more registers);
+- ``three_blocks``: launch bounds that ask for 3 blocks an SM (at most 168
+  registers) at d 16 and 32.
 
 K4 (flagship shapes from the first level to the 32² one):
 
@@ -32,9 +54,10 @@ K4 (flagship shapes from the first level to the 32² one):
 
 Run from the repository root on a machine with the card and ``nvcc``:
 
-    python3 scripts/torch_kernel_variants.py
+    python3 scripts/torch_kernel_variants.py [k1_fwd] [k1_bwd] [k4]
 
-Prints one JSON line per (kernel, shape, build, turn).
+(all three without arguments). Prints one JSON line per (kernel, shape,
+build, turn).
 """
 
 from __future__ import annotations
@@ -51,7 +74,54 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 K1 = "attention_fwd.cu"
+K1_BWD = "attention_bwd.cu"
 K4 = "prologue_grad.cu"
+_AFTER_INCLUDES = '#include "attention_common.cuh"\n'  # the copy's own definitions go after it
+
+_CVT_RNA = _AFTER_INCLUDES + '''
+__device__ __forceinline__ uint32_t tf32_cvt(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ void split_tf32_cvt(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_cvt(x);
+  small = tf32_cvt(x - __uint_as_float(big));
+}
+#define split_tf32 split_tf32_cvt
+'''
+
+_ONE_TERM = _AFTER_INCLUDES + '''
+__device__ __forceinline__ void mma1_tf32(float (&d)[4], const uint32_t (&a_big)[4], const uint32_t (&)[4],
+                                          uint32_t b_big0, uint32_t b_big1, uint32_t, uint32_t) {
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  s2s_mma::mma_tf32(part, a_big, b_big0, b_big1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += part[e];
+}
+#define mma3_tf32 mma1_tf32
+'''
+
+_PAIR_PARTIAL = '''      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        s2s_mma::mma_tf32(part, as[h], fb[2 * h], fb[2 * h + 1]);
+        s2s_mma::mma_tf32(part, ab[h], fs[2 * h], fs[2 * h + 1]);
+        s2s_mma::mma_tf32(part, ab[h], fb[2 * h], fb[2 * h + 1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] += part[e];
+'''
+
+_CHAIN_SUMS = _AFTER_INCLUDES + '''
+__device__ __forceinline__ void mma3_chain(float (&d)[4], const uint32_t (&a_big)[4], const uint32_t (&a_small)[4],
+                                           uint32_t b_big0, uint32_t b_big1, uint32_t b_small0, uint32_t b_small1) {
+  s2s_mma::mma_tf32(d, a_small, b_big0, b_big1);
+  s2s_mma::mma_tf32(d, a_big, b_small0, b_small1);
+  s2s_mma::mma_tf32(d, a_big, b_big0, b_big1);
+}
+#define mma3_tf32 mma3_chain
+'''
 
 _SERIAL_PASS = '''__global__ void __launch_bounds__(256)
 prologue_grad_reduce(const float* __restrict__ partial, float* __restrict__ sums, int B, int C, int slices) {
@@ -114,6 +184,23 @@ BUILDS = {
     (K1, "two_barriers"): [("    __syncwarp();\n", "    __syncthreads();\n")],
     (K1, "s_unroll_8"): [("#pragma unroll 2\n    for (int col = 0;", "#pragma unroll\n    for (int col = 0;")],
     (K1, "pv_unroll_4"): [("#pragma unroll 8\n    for (int key = 0;", "#pragma unroll 4\n    for (int key = 0;")],
+    (K1_BWD, "whole"): [],
+    (K1_BWD, "one_term_tf32"): [(_AFTER_INCLUDES, _ONE_TERM)],
+    (K1_BWD, "split_at_use"): [("static constexpr bool kSplitStaged = D <= 32;",
+                                "static constexpr bool kSplitStaged = false;")],
+    (K1_BWD, "cvt_rna"): [(_AFTER_INCLUDES, _CVT_RNA)],
+    (K1_BWD, "chain_sums"): [(_AFTER_INCLUDES, _CHAIN_SUMS)],
+    (K1_BWD, "pair_partials"): [
+        ("      for (int h = 0; h < 2; ++h) mma3_tf32(s[n], ab[h], as[h], fb[2 * h], fb[2 * h + 1], fs[2 * h], "
+         "fs[2 * h + 1]);\n", _PAIR_PARTIAL),
+    ],
+    (K1_BWD, "columns_16"): [("constexpr int kColTiles = 1;", "constexpr int kColTiles = 2;")],
+    (K1_BWD, "three_blocks"): [
+        ("__global__ void __launch_bounds__(kThreads)\nattention_bwd_dkdv_tf32_kernel",
+         "__global__ void __launch_bounds__(kThreads, D == 64 ? 1 : 3)\nattention_bwd_dkdv_tf32_kernel"),
+        ("__global__ void __launch_bounds__(kThreads)\nattention_bwd_dq_tf32_kernel",
+         "__global__ void __launch_bounds__(kThreads, D == 64 ? 1 : 3)\nattention_bwd_dq_tf32_kernel"),
+    ],
     (K4, "whole"): [],
     (K4, "register_loads"): [
         ("  __shared__ __align__(16) uint4 buf[2][kLoads][kThreads];  // 32 KB: two steps of x and dn\n", ""),
@@ -141,12 +228,14 @@ def _edit(src: str, edit, what: str) -> str:
     return src[:src.index(start)] + new + src[src.index(end):]
 
 
-def build(work: Path) -> dict:
-    """One library per build, all nvcc's at once; the edits must all apply."""
+def build(work: Path, sources) -> dict:
+    """One library per build of ``sources``, all nvcc's at once; the edits must all apply."""
     from stain2stain_tpu_torch import _build
 
     procs = {}
     for (source, name), edits in BUILDS.items():
+        if source not in sources:
+            continue
         src = (_build.CSRC / source).read_text()
         for edit in edits:
             src = _edit(src, edit, f"{source} build {name!r}")
@@ -161,9 +250,35 @@ def build(work: Path) -> dict:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed on {key}:\n{out}")
-        registers = [line.split("Used ")[1].split(",")[0] for line in out.splitlines() if "Used " in line]
-        libs[key] = (ctypes.CDLL(str(path.with_suffix(".so"))), registers)
+        libs[key] = (ctypes.CDLL(str(path.with_suffix(".so"))), ptxas_report(out))
     return libs
+
+
+def ptxas_report(out: str) -> dict:
+    """{kernel: "registers/spill-store bytes"} from ptxas' report, each kernel
+    named by its function and its mangled template arguments."""
+    import re
+
+    report, name = {}, None
+    for line in out.splitlines():
+        found = re.search(r"entry function '(\S+)'", line)
+        if found:
+            mangled = found.group(1)
+            # Itanium mangling: <length><name>, the length's digits maybe glued to a hash's
+            for m in re.finditer(r"\d+", mangled):
+                idents = [mangled[m.end():m.end() + int(m.group()[i:])] for i in range(len(m.group()))]
+                ident = next((x for x in idents if x.endswith("_kernel") and x[0].isalpha()), None)
+                if ident:
+                    args = re.match(r"I\w*?E", mangled[m.end() + len(ident):])
+                    name = ident + (args.group() if args else "")
+                    break
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill and name:
+            report[name] = spill.group(1)
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            report[name] = f"{regs.group(1)}/{report.get(name, '?')}"
+    return report
 
 
 def in_turns(names):
@@ -201,6 +316,73 @@ def time_k1(libs: dict, card: str) -> None:
                        registers=registers, max_abs_err=err, ok=err <= chip_smoke.TOL["float32"],
                        queued_ms=chip_smoke.cuda_queued_ms(call))
             print("variants " + json.dumps(row), flush=True)
+
+
+def time_k1_bwd(libs: dict, card: str) -> None:
+    import torch
+
+    import chip_smoke
+    from stain2stain_tpu_torch.ops.attention import fused_attention, fused_attention_backward_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    builds = [name for source, name in BUILDS if source == K1_BWD]
+    for bh, t, d in ((512, 1024, 32), (96, 4096, 32)):
+        q, k, v, do = (torch.randn(bh, t, d, device="cuda", generator=gen) for _ in range(4))
+        scale = 1.0 / math.sqrt(d)
+        o, lse = fused_attention(q, k, v, scale, return_lse=True)  # as training hands them over
+        ref = fused_attention_backward_reference(q, k, v, o, do, scale)
+        tol = chip_smoke.BWD_REL_TOL["float32"] * max(float(r.abs().max()) for r in ref)
+        bound = chip_smoke.attention_bwd_bound(bh, t, d, "float32", 1.0)
+        grads = [torch.empty_like(q) for _ in range(3)]
+        stats = torch.empty(bh, math.ceil(t / 64) * 64, 2, device="cuda")
+
+        def caller(name):
+            fn = libs[(K1_BWD, name)][0].s2s_attention_bwd
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+
+            def call():
+                rc = fn(*(x.data_ptr() for x in (q, k, v, o, do, lse, *grads, stats)), bh, t, d, 0, scale,
+                        torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"K1-bwd build {name}: launch failed with CUDA error {rc}")
+
+            return call
+
+        for turn, name in enumerate(in_turns(builds)):
+            registers = {k: v for k, v in libs[(K1_BWD, name)][1].items() if "tf32" in k}
+            call = caller(name)
+            call()
+            torch.cuda.synchronize()
+            err = max(float((g - r).abs().max()) for g, r in zip(grads, ref))
+            row = dict(card=card, kernel="K1-bwd f32", shape=[bh, t, d], build=name, turn=turn,
+                       registers=registers, max_abs_err=err, tol=tol,
+                       ok=err <= tol or name in ("one_term_tf32", "chain_sums"),
+                       bound_ms=bound["bound_ms"], tf32x3_bound_ms=bound["tf32x3_bound_ms"],
+                       queued_ms=chip_smoke.cuda_queued_ms(call, calls=10))
+            print("variants " + json.dumps(row), flush=True)
+        # where the whole kernel's time goes: device ms of each of its launches
+        print("variants-passes " + json.dumps(dict(card=card, shape=[bh, t, d], **kernel_ms(caller("whole")))),
+              flush=True)
+        del q, k, v, do, o, lse, ref, grads, stats
+        torch.cuda.empty_cache()
+
+
+def kernel_ms(call, calls: int = 5) -> dict:
+    """Device ms a call of each kernel ``call`` launches, from ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    return {e.key[:70]: chip_smoke._device_us(e) / 1e3 / calls for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and chip_smoke._device_us(e) > 0}
 
 
 def time_k4(libs: dict, card: str) -> None:
@@ -269,11 +451,16 @@ def main() -> int:
         print("torch_kernel_variants: no CUDA device is available", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain f32 attention in full f32
+    timers = {"k1_fwd": (K1, time_k1), "k1_bwd": (K1_BWD, time_k1_bwd), "k4": (K4, time_k4)}
+    chosen = sys.argv[1:] or list(timers)
+    if any(name not in timers for name in chosen):
+        print(f"torch_kernel_variants: choose from {list(timers)}", file=sys.stderr)
+        return 2
     card = chip_smoke.nvidia_smi("name,power.limit")
     with tempfile.TemporaryDirectory(prefix="kernel_variants_") as work:
-        libs = build(Path(work))
-        time_k1(libs, card)
-        time_k4(libs, card)
+        libs = build(Path(work), {timers[name][0] for name in chosen})
+        for name in chosen:
+            timers[name][1](libs, card)
     return 0
 
 

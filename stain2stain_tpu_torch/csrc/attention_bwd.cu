@@ -14,10 +14,12 @@
 //
 // Bound on the H100 at the 256-px training shape (BH 512 = 16 heads x batch
 // 32, T 1024, D 32: the mid block): 10*BH*T^2*D = 172 GFLOP of products
-// (0.17 ms on bf16 tensor cores at 989 TFLOP/s, 2.6 ms on the FP32 pipes at
-// 67 TFLOP/s), BH*T^2 = 537 M exponentials (~0.13 ms on the MUFU units), and
-// 8*BH*T*D elements of q/k/v/o/do/dq/dk/dv (0.27 GB in bf16, ~0.08 ms). So the
-// products bound it: on the tensor cores for bf16, on the FP32 pipes for f32.
+// (0.17 ms on bf16 tensor cores at 989 TFLOP/s, 2.6 ms of f32 work on the
+// FP32 pipes at 67 TFLOP/s, 1.04 ms as 3xTF32 on the tensor cores at 494),
+// BH*T^2 = 537 M exponentials (~0.13 ms on the MUFU units), and 8*BH*T*D
+// elements of q/k/v/o/do/dq/dk/dv (0.27 GB in bf16, ~0.08 ms). So the products
+// bound it. At the 512-px f32 training shape (BH 96 = 16 heads x batch 6,
+// T 4096, D 32): 515 GFLOP, 7.7 ms on the FP32 pipes, 3.1 ms in 3xTF32.
 //
 // The TPU kernel walks the q blocks of one (batch*head) in order on one core
 // and accumulates dk/dv in the output block across those steps; Hopper blocks
@@ -26,8 +28,9 @@
 //   1. prep: one block per (bh, 64 rows). delta = rowsum(do*o) and lse in log2
 //      units (lse * log2 e) into an f32 (BH, T_pad, 2) scratch the wrapper
 //      allocates, T_pad = T rounded up to 64; rows past T get (+inf, 0), so
-//      their p is 0. Without a given lse, bf16 recomputes it on the tensor
-//      cores (K1-fwd's online softmax without p.v) and f32 on the FP32 pipes.
+//      their p is 0. Without a given lse (no main path: training hands K1-fwd's
+//      over), bf16 recomputes it on the tensor cores (K1-fwd's online softmax
+//      without p.v) and f32 on the FP32 pipes, one query row a thread.
 //   2. dk/dv: one block per (bh, 64 keys).
 //   3. dq: one block per (bh, 64 queries).
 //
@@ -45,10 +48,45 @@
 //   products against the bound's five (s and dp are computed in both passes):
 //   14*BH*T^2*D, about 0.24 ms at the training shape, the price of no atomics
 //   (SDPA's FlashAttention-2 backward adds dq with f32 atomics).
-// f32 (one row per thread, 64-thread blocks, FP32 pipes; f32 keeps f32
-// products): 2. one key row a thread, k_j, v_j and dk_j/dv_j in registers, 32
-// queries staged per step (reads broadcast); 3. one query row a thread, 64-key
-// k/v tiles staged. At D = 64 the 4*D registers of f32 pass 2 spill.
+// f32 (the f32 training path's kernel: trainer.precision 32, the default):
+// the same two passes and products on the tensor cores in 3xTF32, mma.sync
+// m16n8k8 tf32 -> f32 (mma_common.cuh). Every f32 operand x is split into
+// big = tf32(x) and small = tf32(x - big), both rounded to nearest, ties away
+// (cvt.rna's rounding, as integer operations), and a product a.b is summed as
+// small_a.big_b + big_a.small_b + big_a.big_b in f32: the split leaves at most
+// 2^-22 |x|, the dropped small.small term at most 2^-22 |ab|, so each product
+// keeps close to f32 accuracy (2e-5 of max|ref| end to end; big.big alone, as
+// 1xTF32, misses that). The tensor cores round each mma's sum toward zero,
+// so the three products go into a fresh partial that an f32 add takes into
+// the accumulator (mma3_tf32); one accumulator carried through the mma's
+// drifts with T (2.5e-5 of max|ref| at T 4096). 21 tensor-core products a
+// tile pair where bf16 runs 7: 722 GFLOP at the 256-px shape (1.46 ms at 494
+// TFLOP/s) against 172 of f32 work on the FP32 pipes, whose rate is 7.4x
+// less. The design:
+//   * a warp walks each staged 64-row tile one 8-row column at a time: a
+//     16 x 8 s (or s^T), p, dp and ds, each product's slices of D in turn,
+//     then dv/dk (or dq) += over those 8 rows. Only one column's p and ds
+//     are live beside the resident rows and the accumulators, and the
+//     column loop is not unrolled, so the compiler's schedule stays within
+//     the registers;
+//   * resident rows (a warp's 16 keys' k and v in pass 2, 16 queries' q and
+//     do in pass 3) are loaded once as f32 A fragments and split at each use
+//     (half the registers of keeping both halves, and no slower: PERF.md);
+//     p and ds are split as the A operand of the next product;
+//   * staged operands (q and do in pass 2, k and v in pass 3) are split once
+//     a tile, where they land: each thread splits the 16-byte chunks it
+//     copied by cp.async, the big halves in place and the small ones into a
+//     tile of their own, so the 4 warps that read a tile do not each split
+//     it again (10 % faster than splitting at each read). At D 64, where the
+//     fragments of both halves in flight would spill, a warp splits what it
+//     reads (Tf32Layout::kSplitStaged);
+//   * the A fragment of tf32 holds columns (t, t + 4) and the accumulator
+//     (2t, 2t + 1): p and ds feed the next product as they sit, the
+//     contraction index permuted instead (pb_tf32);
+//   * staged rows are padded to D + 4 floats: ldmatrix reads the (row g,
+//     column t) B fragments of q.k^T-type products, 8 rows in 8 distinct bank
+//     groups, and the (row 2t, column g) B reads of p.B-type products fall in
+//     32 distinct banks.
 //
 // Launches on the caller's stream, allocates nothing, and returns the first
 // launch error (cudaGetLastError) so the Python wrapper can raise on it.
@@ -126,7 +164,6 @@ attention_bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k, cons
 // and sum over 16-key chunks, as K1-fwd's f32 kernel) with delta.
 constexpr int kF32Rows = 64;   // rows (queries or keys) per block, one per thread
 constexpr int kF32Keys = 64;   // keys staged in shared memory per step
-constexpr int kF32Queries = 32;  // queries staged in shared memory per step (pass 2)
 constexpr int kChunk = 16;     // keys scored per online-softmax update
 
 template <int D>
@@ -142,19 +179,6 @@ __device__ __forceinline__ float dot_row(const float* a, const float* smem_row) 
     acc = fmaf(a[4 * i + 3], x.w, acc);
   }
   return acc;
-}
-
-template <int D>
-__device__ __forceinline__ void axpy_row(float* acc, float alpha, const float* smem_row) {
-  const float4* r = reinterpret_cast<const float4*>(smem_row);
-#pragma unroll
-  for (int i = 0; i < D / 4; ++i) {
-    const float4 x = r[i];
-    acc[4 * i + 0] = fmaf(alpha, x.x, acc[4 * i + 0]);
-    acc[4 * i + 1] = fmaf(alpha, x.y, acc[4 * i + 1]);
-    acc[4 * i + 2] = fmaf(alpha, x.z, acc[4 * i + 2]);
-    acc[4 * i + 3] = fmaf(alpha, x.w, acc[4 * i + 3]);
-  }
 }
 
 // Stage rows [r0, r0 + n_rows) of a (T, D) f32 slice; rows past T are zero.
@@ -403,108 +427,374 @@ attention_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   }
 }
 
-// ---- f32 passes 2 and 3: FP32 pipes -------------------------------------------
+// ---- f32 passes 2 and 3: tensor cores in 3xTF32 ------------------------------
 
+// Shared-memory layout of an f32 pass, in floats, rows padded to D + 4: two
+// staged operands (q and do in pass 2, k and v in pass 3), two 64-row tiles
+// each (cp.async double buffering); at D 16 and 32 the tile in use holds
+// its big halves in place and one more tile each its small halves
+// (kSplitStaged); then pass 2's (lse2, delta) pairs of two query tiles. 31,
+// 55 and 69 KB at D 16, 32, 64. At D 64 the staged tiles are split where a
+// warp reads them instead (no small tiles): holding both halves' fragments
+// in flight there leaves no registers to spare beside the accumulators
+// (ptxas spilled).
 template <int D>
-__global__ void __launch_bounds__(kF32Rows)
-attention_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const float* __restrict__ dout,
-                              const float2* __restrict__ stats, float* __restrict__ dk, float* __restrict__ dv,
-                              int t_len, int t_pad, int n_tiles, float q_scale, float scale) {
-  __shared__ __align__(16) float qs[kF32Queries][D];
-  __shared__ __align__(16) float dos[kF32Queries][D];
-  __shared__ float lses[kF32Queries];
-  __shared__ float dlts[kF32Queries];
+struct Tf32Layout {
+  static constexpr bool kSplitStaged = D <= 32;
+  static constexpr int kRow = D + 4;
+  static constexpr int kTileFloats = kTile * kRow;
+  static constexpr int kX = 0;                    // q or k
+  static constexpr int kY = 2 * kTileFloats;      // do or v
+  static constexpr int kXSmall = 4 * kTileFloats;
+  static constexpr int kYSmall = 5 * kTileFloats;
+  static constexpr int kStats = (kSplitStaged ? 6 : 4) * kTileFloats;  // float2 x 2 tiles
+  static constexpr int kBytes = 4 * (kStats + 2 * 2 * kTile);
+};
 
-  const int bh = blockIdx.x / n_tiles;
-  const int tile = blockIdx.x - bh * n_tiles;
-  const int tid = threadIdx.x;
-  const int key = tile * kF32Rows + tid;
-  const bool key_valid = key < t_len;
-  const int64_t base = static_cast<int64_t>(bh) * t_len * D;
-  const int64_t key_off = base + static_cast<int64_t>(key) * D;
-  const int64_t stat_base = static_cast<int64_t>(bh) * t_pad;
-
-  float kr[D], vr[D], dkr[D], dvr[D];
+// Start the cp.async copies of rows [row0, row0 + 64) of a contiguous (T, D)
+// f32 slice into a padded tile; rows past T are zero-filled.
+template <int D>
+__device__ __forceinline__ void stage_f32(float* dst, const float* __restrict__ src, int row0, int t_len, int tid) {
+  constexpr int kChunks = D / 4;  // 16-byte chunks of a row
+  static_assert(kTile * kChunks % kThreads == 0, "every thread copies the same number of chunks");
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-    kr[i] = key_valid ? k[key_off + i] * q_scale : 0.f;
-    vr[i] = key_valid ? v[key_off + i] : 0.f;
-    dkr[i] = 0.f;
-    dvr[i] = 0.f;
+  for (int it = 0; it < kTile * kChunks / kThreads; ++it) {
+    const int i = tid + it * kThreads;
+    const int r = i / kChunks;
+    const int c = i - r * kChunks;
+    const int row = row0 + r;
+    const bool valid = row < t_len;
+    cp_async16(dst + r * Tf32Layout<D>::kRow + 4 * c, src + static_cast<int64_t>(valid ? row : 0) * D + 4 * c,
+               valid);
   }
+}
 
-  for (int i0 = 0; i0 < t_len; i0 += kF32Queries) {
-    __syncthreads();
-    stage_rows<D, kF32Queries>(qs, q, base, i0, t_len, tid);
-    stage_rows<D, kF32Queries>(dos, dout, base, i0, t_len, tid);
-    if (tid < kF32Queries) {  // rows past T hold (+inf, 0): p = 0
-      const float2 st = stats[stat_base + i0 + tid];
-      lses[tid] = st.x;
-      dlts[tid] = st.y;
-    }
-    __syncthreads();
-    const int n_q = min(kF32Queries, t_len - i0);
-#pragma unroll 2
-    for (int i = 0; i < n_q; ++i) {
-      const float p = exp2f(dot_row<D>(kr, &qs[i][0]) - lses[i]);
-      const float ds = p * (dot_row<D>(vr, &dos[i][0]) - dlts[i]);
-      axpy_row<D>(dvr, p, &dos[i][0]);
-      axpy_row<D>(dkr, ds, &qs[i][0]);
+// Split the chunks this thread copied into a staged tile (stage_f32, after
+// cp_async_wait): the tile keeps the big halves, `small` gets the small ones.
+// A thread sees its own copies after the wait, so no barrier is needed before.
+template <int D>
+__device__ __forceinline__ void split_staged(float* tile, float* small, int tid) {
+  if constexpr (Tf32Layout<D>::kSplitStaged) {
+    constexpr int kChunks = D / 4;
+#pragma unroll
+    for (int it = 0; it < kTile * kChunks / kThreads; ++it) {
+      const int i = tid + it * kThreads;
+      const int r = i / kChunks;
+      const int off = r * Tf32Layout<D>::kRow + 4 * (i - r * kChunks);
+      const float4 x = *reinterpret_cast<const float4*>(tile + off);
+      uint4 big, sml;
+      split_tf32(x.x, big.x, sml.x);
+      split_tf32(x.y, big.y, sml.y);
+      split_tf32(x.z, big.z, sml.z);
+      split_tf32(x.w, big.w, sml.w);
+      *reinterpret_cast<uint4*>(tile + off) = big;
+      *reinterpret_cast<uint4*>(small + off) = sml;
     }
   }
-  if (key_valid) {
+}
+
+// B fragments of two m16n8k8 products, big and small halves, from a staged
+// tile: four 8 x 8 b16 matrices (8 rows x 4 floats each), whose ldmatrix
+// layout is the tf32 fragment (row g, column t).
+template <int D>
+__device__ __forceinline__ void b_frags_x4(uint32_t (&big)[4], uint32_t (&small)[4], const float* tile_big,
+                                           const float* tile_small, int off) {
+  ldsm_x4(big, tile_big + off);
+  if constexpr (Tf32Layout<D>::kSplitStaged) {
+    ldsm_x4(small, tile_small + off);
+  } else {
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
-      dk[key_off + i] = dkr[i] * scale;
-      dv[key_off + i] = dvr[i];
+    for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(big[e]), big[e], small[e]);
+  }
+}
+
+// One B element, big and small halves, from a staged tile.
+template <int D>
+__device__ __forceinline__ void b_elem(uint32_t& big, uint32_t& small, const float* tile_big,
+                                       const float* tile_small, int off) {
+  if constexpr (Tf32Layout<D>::kSplitStaged) {
+    big = __float_as_uint(tile_big[off]);
+    small = __float_as_uint(tile_small[off]);
+  } else {
+    split_tf32(tile_big[off], big, small);
+  }
+}
+
+// The f32 A fragments of m16n8k8 (one 16 x 8 slice of D per entry: (row g,
+// column t), (g + 8, t), (g, t + 4), (g + 8, t + 4)) of a warp's 16 resident
+// rows [r0, r0 + 16) (k and v in pass 2, q and do in pass 3), read once from
+// device memory; rows past T are 0. They stay f32 and are split at each use:
+// half the registers of keeping both halves, and no slower.
+template <int D>
+__device__ __forceinline__ void load_a_f32(float (&a)[D / 8][4], const float* __restrict__ src, int r0, int t_len,
+                                           int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    const float* p = src + static_cast<int64_t>(row) * D + t;
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ++ks) {
+      a[ks][h] = row < t_len ? __ldg(p + 8 * ks) : 0.f;          // column 8ks + t
+      a[ks][h + 2] = row < t_len ? __ldg(p + 8 * ks + 4) : 0.f;  // column 8ks + t + 4
+    }
+  }
+}
+
+// 8-row n-tiles of a column: the staged rows a warp's step takes.
+constexpr int kColTiles = 1;
+
+// s (16 x 8NT) = A . B^T over D in 3xTF32: A a warp's resident rows, B the
+// staged rows [n0, n0 + 8NT) of a tile, two slices of D per ldmatrix pair.
+template <int D, int NT>
+__device__ __forceinline__ void abt_tf32(float (&s)[NT][4], const float (&a)[D / 8][4], const float* big,
+                                         const float* small, int n0, int lane) {
+  static_assert(D % 16 == 0, "two slices of D per ldmatrix pair");
+  const int lj = lane >> 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ks += 2) {
+    uint32_t ab[2][4], as[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(a[ks + h][e], ab[h][e], as[h][e]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      // matrices {slice ks: columns 8ks..+3, 8ks+4..+7}, {slice ks + 1: the same}
+      const int off = (n0 + 8 * n + (lane & 7)) * Tf32Layout<D>::kRow + 8 * (ks + (lj >> 1)) + 4 * (lj & 1);
+      uint32_t fb[4], fs[4];
+      b_frags_x4<D>(fb, fs, big, small, off);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) mma3_tf32(s[n], ab[h], as[h], fb[2 * h], fb[2 * h + 1], fs[2 * h], fs[2 * h + 1]);
+    }
+  }
+}
+
+// acc (16 x D) += P . B over the staged rows [k0, k0 + 8NT) of a tile in
+// 3xTF32, P (16 x 8NT) f32 accumulator tiles of abt_tf32. The tf32 A fragment
+// holds columns (t, t + 4) where an accumulator tile holds (2t, 2t + 1), so
+// the contraction index is permuted instead of the registers: A's column t
+// is row 2t of B's 8 rows, column t + 4 row 2t + 1. With rows of D + 4
+// floats, the 32 lanes' B reads (row 2t, column g) fall in 32 distinct banks.
+template <int D, int NT>
+__device__ __forceinline__ void pb_tf32(float (&acc)[D / 8][4], const float (&p)[NT][4], const float* big,
+                                        const float* small, int k0, int lane) {
+  constexpr int kRow = Tf32Layout<D>::kRow;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    uint32_t ab[4], as[4];
+    split_tf32(p[n][0], ab[0], as[0]);  // (row g, column 2t)
+    split_tf32(p[n][2], ab[1], as[1]);  // (row g + 8, column 2t)
+    split_tf32(p[n][1], ab[2], as[2]);  // (row g, column 2t + 1)
+    split_tf32(p[n][3], ab[3], as[3]);  // (row g + 8, column 2t + 1)
+    const int off = (k0 + 8 * n + 2 * t) * kRow + g;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      uint32_t bb0, bb1, bs0, bs1;
+      b_elem<D>(bb0, bs0, big, small, off + 8 * dn);
+      b_elem<D>(bb1, bs1, big, small, off + kRow + 8 * dn);
+      mma3_tf32(acc[dn], ab, as, bb0, bb1, bs0, bs1);
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kF32Rows)
-attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                            const float* __restrict__ dout, const float2* __restrict__ stats,
-                            float* __restrict__ dq, int t_len, int t_pad, int n_tiles, float q_scale, float scale) {
-  __shared__ __align__(16) float ks[kF32Keys][D];
-  __shared__ __align__(16) float vs[kF32Keys][D];
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dkdv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                               const float* __restrict__ dout, const float2* __restrict__ stats,
+                               float* __restrict__ dk, float* __restrict__ dv, int t_len, int t_pad, int n_tiles,
+                               float c, float scale) {
+  using L = Tf32Layout<D>;
+  extern __shared__ __align__(16) float smem[];
+  float2* sts = reinterpret_cast<float2*>(smem + L::kStats);
 
   const int bh = blockIdx.x / n_tiles;
   const int tile = blockIdx.x - bh * n_tiles;
   const int tid = threadIdx.x;
-  const int row = tile * kF32Rows + tid;
-  const bool row_valid = row < t_len;
+  const int lane = tid & 31;
+  const int t = lane & 3;
+  const int r0 = tile * kTile + (tid >> 5) * 16;  // this warp's keys
   const int64_t base = static_cast<int64_t>(bh) * t_len * D;
-  const int64_t row_off = base + static_cast<int64_t>(row) * D;
+  const float* qb = q + base;
+  const float* dob = dout + base;
+  const float2* stb = stats + static_cast<int64_t>(bh) * t_pad;
 
-  float qr[D], dor[D], acc[D];
+  float ka[D / 8][4], va[D / 8][4];
+  load_a_f32<D>(ka, k + base, r0, t_len, lane);
+  load_a_f32<D>(va, v + base, r0, t_len, lane);
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-    qr[i] = row_valid ? q[row_off + i] * q_scale : 0.f;
-    dor[i] = row_valid ? dout[row_off + i] : 0.f;
-    acc[i] = 0.f;
-  }
-  const float2 st = stats[static_cast<int64_t>(bh) * t_pad + row];  // (+inf, 0) past T
-  const float lse_i = st.x;
-  const float dlt_i = st.y;
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.f;
 
-  for (int j0 = 0; j0 < t_len; j0 += kF32Keys) {
-    __syncthreads();
-    stage_rows<D, kF32Keys>(ks, k, base, j0, t_len, tid);
-    stage_rows<D, kF32Keys>(vs, v, base, j0, t_len, tid);
-    __syncthreads();
-    const int n_keys = min(kF32Keys, t_len - j0);
-#pragma unroll 2
-    for (int j = 0; j < n_keys; ++j) {
-      const float p = exp2f(dot_row<D>(qr, &ks[j][0]) - lse_i);
-      const float ds = p * (dot_row<D>(dor, &vs[j][0]) - dlt_i);
-      axpy_row<D>(acc, ds, &ks[j][0]);
+  // 64 (lse2, delta) pairs = 32 chunks of 16 bytes; T_pad rows always exist
+  auto stage_stats = [&](float2* dst, int row0) {
+    if (tid < kTile / 2) cp_async16(dst + 2 * tid, stb + row0 + 2 * tid, true);
+  };
+  const int n_q = (t_len + kTile - 1) / kTile;
+  stage_f32<D>(smem + L::kX, qb, 0, t_len, tid);
+  stage_f32<D>(smem + L::kY, dob, 0, t_len, tid);
+  stage_stats(sts, 0);
+  cp_async_commit();
+  for (int i = 0; i < n_q; ++i) {
+    const int cur = i & 1;
+    if (i + 1 < n_q) {
+      const int nxt = (cur ^ 1) * L::kTileFloats;
+      stage_f32<D>(smem + L::kX + nxt, qb, (i + 1) * kTile, t_len, tid);
+      stage_f32<D>(smem + L::kY + nxt, dob, (i + 1) * kTile, t_len, tid);
+      stage_stats(sts + (cur ^ 1) * kTile, (i + 1) * kTile);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    float* qt = smem + L::kX + cur * L::kTileFloats;
+    float* dot = smem + L::kY + cur * L::kTileFloats;
+    const float* qs = smem + L::kXSmall;
+    const float* dos = smem + L::kYSmall;
+    split_staged<D>(qt, smem + L::kXSmall, tid);
+    split_staged<D>(dot, smem + L::kYSmall, tid);
+    __syncthreads();  // every thread's split (and stats) landed
+    const float2* stt = sts + cur * kTile;
+
+    // one column of 8 queries of the tile at a time: the live registers stay
+    // those of one 16 x 8 p and ds beside the resident rows and the accumulators
+#pragma unroll 1
+    for (int q0 = 0; q0 < kTile; q0 += 8 * kColTiles) {
+      float p[kColTiles][4];  // p^T: this warp's 16 keys x the column's queries
+      abt_tf32<D, kColTiles>(p, ka, qt, qs, q0, lane);  // s^T = k . q^T
+#pragma unroll
+      for (int n = 0; n < kColTiles; ++n) {
+        const float4 st = *reinterpret_cast<const float4*>(stt + q0 + 8 * n + 2 * t);  // queries 2t, 2t + 1
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          p[n][2 * h] = exp2f(fmaf(p[n][2 * h], c, -st.x));
+          p[n][2 * h + 1] = exp2f(fmaf(p[n][2 * h + 1], c, -st.z));
+        }
+      }
+      pb_tf32<D, kColTiles>(dv_acc, p, dot, dos, q0, lane);  // dv += p^T . do
+      float ds[kColTiles][4];
+      abt_tf32<D, kColTiles>(ds, va, dot, dos, q0, lane);  // dp^T = v . do^T
+#pragma unroll
+      for (int n = 0; n < kColTiles; ++n) {
+        const float4 st = *reinterpret_cast<const float4*>(stt + q0 + 8 * n + 2 * t);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          ds[n][2 * h] = p[n][2 * h] * (ds[n][2 * h] - st.y);
+          ds[n][2 * h + 1] = p[n][2 * h + 1] * (ds[n][2 * h + 1] - st.w);
+        }
+      }
+      pb_tf32<D, kColTiles>(dk_acc, ds, qt, qs, q0, lane);  // dk += ds^T . q
+    }
+    __syncthreads();  // the tile and the small halves are consumed before they are refilled
+  }
+
+  const int g = lane >> 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    if (row >= t_len) continue;
+    const int64_t off = base + static_cast<int64_t>(row) * D + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      *reinterpret_cast<float2*>(dk + off + 8 * nt) =
+          make_float2(dk_acc[nt][2 * h] * scale, dk_acc[nt][2 * h + 1] * scale);
+      *reinterpret_cast<float2*>(dv + off + 8 * nt) = make_float2(dv_acc[nt][2 * h], dv_acc[nt][2 * h + 1]);
     }
   }
-  if (row_valid) {
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                             const float* __restrict__ dout, const float2* __restrict__ stats,
+                             float* __restrict__ dq, int t_len, int t_pad, int n_tiles, float c, float scale) {
+  using L = Tf32Layout<D>;
+  extern __shared__ __align__(16) float smem[];
+
+  const int bh = blockIdx.x / n_tiles;
+  const int tile = blockIdx.x - bh * n_tiles;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = tile * kTile + (tid >> 5) * 16;  // this warp's queries
+  const int64_t base = static_cast<int64_t>(bh) * t_len * D;
+  const float* kb = k + base;
+  const float* vb = v + base;
+
+  float qa[D / 8][4], doa[D / 8][4];
+  load_a_f32<D>(qa, q + base, r0, t_len, lane);
+  load_a_f32<D>(doa, dout + base, r0, t_len, lane);
+  float nlse[2], dlt[2];  // rows g and g + 8 (rows past T: lse2 = +inf, so p = 0)
 #pragma unroll
-    for (int i = 0; i < D; ++i) dq[row_off + i] = acc[i] * scale;
+  for (int h = 0; h < 2; ++h) {
+    const float2 st = stats[static_cast<int64_t>(bh) * t_pad + r0 + g + 8 * h];
+    nlse[h] = -st.x;
+    dlt[h] = st.y;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+  const int n_k = (t_len + kTile - 1) / kTile;
+  stage_f32<D>(smem + L::kX, kb, 0, t_len, tid);
+  stage_f32<D>(smem + L::kY, vb, 0, t_len, tid);
+  cp_async_commit();
+  for (int j = 0; j < n_k; ++j) {
+    const int cur = (j & 1) * L::kTileFloats;
+    if (j + 1 < n_k) {
+      const int nxt = L::kTileFloats - cur;
+      stage_f32<D>(smem + L::kX + nxt, kb, (j + 1) * kTile, t_len, tid);
+      stage_f32<D>(smem + L::kY + nxt, vb, (j + 1) * kTile, t_len, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    float* kt = smem + L::kX + cur;
+    float* vt = smem + L::kY + cur;
+    const float* ks = smem + L::kXSmall;
+    const float* vs = smem + L::kYSmall;
+    split_staged<D>(kt, smem + L::kXSmall, tid);
+    split_staged<D>(vt, smem + L::kYSmall, tid);
+    __syncthreads();
+
+    // one column of 8 keys of the tile at a time
+#pragma unroll 1
+    for (int k0 = 0; k0 < kTile; k0 += 8 * kColTiles) {
+      float p[kColTiles][4];
+      abt_tf32<D, kColTiles>(p, qa, kt, ks, k0, lane);  // s = q . k^T
+      float ds[kColTiles][4];
+      abt_tf32<D, kColTiles>(ds, doa, vt, vs, k0, lane);  // dp = do . v^T
+#pragma unroll
+      for (int n = 0; n < kColTiles; ++n) {
+        const int key = j * kTile + k0 + 8 * n + 2 * t;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // zero-filled keys past T get p = 0
+          const float pe = key + (e & 1) < t_len ? exp2f(fmaf(p[n][e], c, nlse[e >> 1])) : 0.f;
+          ds[n][e] = pe * (ds[n][e] - dlt[e >> 1]);
+        }
+      }
+      pb_tf32<D, kColTiles>(acc, ds, kt, ks, k0, lane);  // dq += ds . k
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + g + 8 * h;
+    if (row >= t_len) continue;
+    float* out = dq + base + static_cast<int64_t>(row) * D + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<float2*>(out + 8 * nt) = make_float2(acc[nt][2 * h] * scale, acc[nt][2 * h + 1] * scale);
   }
 }
 
@@ -535,24 +825,28 @@ int launch_f32(const float* q, const float* k, const float* v, const float* o, c
                float* dq, float* dk, float* dv, float2* stats, int bh, int t_len, int t_pad, float scale,
                cudaStream_t stream) {
   static_assert(kF32Rows == kTile, "one grid for every pass");
-  const float q_scale = scale * kLog2e;  // softmax via exp2
-  const int n_tiles = t_pad / kF32Rows;
+  const float c = scale * kLog2e;  // softmax via exp2
+  const int n_tiles = t_pad / kTile;
   const unsigned grid = static_cast<unsigned>(bh) * n_tiles;
   if (lse != nullptr) {
     attention_bwd_prep_kernel<float, D><<<grid, kThreads, 0, stream>>>(q, k, o, dout, lse, stats, t_len, t_pad,
-                                                                       n_tiles, q_scale);
+                                                                       n_tiles, c);
   } else {
-    attention_bwd_stats_f32_kernel<D><<<grid, kF32Rows, 0, stream>>>(q, k, o, dout, stats, t_len, t_pad, n_tiles,
-                                                                     q_scale);
+    attention_bwd_stats_f32_kernel<D><<<grid, kF32Rows, 0, stream>>>(q, k, o, dout, stats, t_len, t_pad, n_tiles, c);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dkdv_f32_kernel<D><<<grid, kF32Rows, 0, stream>>>(q, k, v, dout, stats, dk, dv, t_len, t_pad,
-                                                                  n_tiles, q_scale, scale);
+  constexpr int bytes = Tf32Layout<D>::kBytes;
+  err = cudaFuncSetAttribute(attention_bwd_dkdv_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attention_bwd_dkdv_tf32_kernel<D><<<grid, kThreads, bytes, stream>>>(q, k, v, dout, stats, dk, dv, t_len, t_pad,
+                                                                       n_tiles, c, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dq_f32_kernel<D><<<grid, kF32Rows, 0, stream>>>(q, k, v, dout, stats, dq, t_len, t_pad, n_tiles,
-                                                                q_scale, scale);
+  err = cudaFuncSetAttribute(attention_bwd_dq_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attention_bwd_dq_tf32_kernel<D><<<grid, kThreads, bytes, stream>>>(q, k, v, dout, stats, dq, t_len, t_pad,
+                                                                     n_tiles, c, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
