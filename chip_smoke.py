@@ -15,8 +15,9 @@ Phases (any failure ends the script with a non-zero exit and no result line):
 3. K1-fwd (``csrc/attention_fwd.cu``) against its plain PyTorch version on
    the card, output and row log-sum-exp, with the stated tolerances: the
    serving shapes (f32 and bf16), the training shapes (bf16 at 256 px, f32
-   at 512 px, with the lse that training saves), d 16 and d 64 (both
-   dtypes), T 4096, ragged T, peaked logits (q × 8); times of the kernel
+   at 512 px, with the lse that training saves), ``generate_all_classes``'
+   shape (BH 768, f32), d 16 and d 64 (both dtypes), T 4096, ragged T,
+   peaked logits (q × 8); times of the kernel
    (per call, ``ms``, and queued device time, ``queued_ms``, see
    :func:`cuda_queued_ms`), the plain version and
    ``scaled_dot_product_attention`` (a yardstick only, never used by the
@@ -77,9 +78,28 @@ Phases (any failure ends the script with a non-zero exit and no result line):
     from one generator seed) on the card (K2–K5) against the same step on
     the CPU (their plain versions): loss and every parameter gradient; and
     the fused against the unfused net on the card, same weights, eval.
-13. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5, each with ``ms`` and
-    ``queued_ms``, and launches by path), the card line, and ``{"ok": true,
-    "device": ...}`` as the last line.
+13. ``train-remat``: phase 8's operating point with
+    ``+model.net.use_checkpoint=level`` through the entry point (K1-fwd once
+    per forward plus once per step: the mid block's recompute); each mode of
+    ``REMAT_MODES`` through the trainer's step (peak memory, median step
+    time, K1 launches a step); one f32 step at batch 2 (TF32 off,
+    deterministic cuDNN, dropout 0.1) under each mode against the step
+    without remat (loss, every gradient, the generator's state); then phase
+    11's fused run with level remat (K2 44 per forward plus 44 per step: all
+    22 fused ResBlocks lie in regions).
+14. ``any2any``: ``experiment=any2any_he_amyloid`` through the entry point on
+    synthetic domain folders (f32, level remat, batch 32 cut from 128, 8
+    steps, validation, checkpoints, test); its task, jittered, behind the
+    class-conditioned server over HTTP (a request per class, the outputs
+    differ, K1-fwd once per velocity evaluation); ``generate_all_classes`` on
+    16 tiles (K1-fwd at BH 768) against ``generate`` per class, TF32 off.
+15. ``eval``: on phase 7's best checkpoint, ``eval`` (its test loss),
+    ``eval_quality`` (one JSON line), SSIM/PSNR and the Inception features on
+    the card against the CPU, ``infer_wsi``, ``infer_simple_flowmatching`` and
+    ``infer_any2any`` (on phase 14's checkpoint).
+16. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5, each with ``ms`` and
+    ``queued_ms``, and launches by path), the seconds of every phase, the
+    card line, and ``{"ok": true, "device": ...}`` as the last line.
 
 With ``--profile`` it also profiles a tile batch and a request, and a train
 step of each path (``phase_profile_train``).
@@ -90,6 +110,7 @@ the port's package is not beside it.
 
 from __future__ import annotations
 
+import gc
 import io
 import json
 import math
@@ -280,6 +301,8 @@ def phase_kernels(exp_per_s: float) -> dict:
         (256, 1024, 16, "float32", 1.0, False, "d 16, f32"),
         (128, 1024, 64, "float32", 1.0, False, "d 64, f32"),
         (64, 1024, 32, "float32", 8.0, True, "peaked logits (q x 8), f32"),
+        (768, 1024, 32, "float32", 1.0, False,
+         "generate_all_classes' shape (3 classes x 16 tiles x 16 heads), f32: any2any's all-class call"),
     ]
     results = []
     for bh, t, d, dtype, peak, with_lse, what in cases:
@@ -866,20 +889,46 @@ TRAIN_F32_OVERRIDES = [
     "trainer.check_val_every_n_epoch=1",
     "test=true",
 ]
+# level remat: every ResBlock and the mid block (with its attention) lie in a
+# region, so K1-fwd and each fused block's K2 run again in every backward
+REMAT_OVERRIDE = "+model.net.use_checkpoint=level"
+# the reference's any<->any study (configs/experiment/any2any_he_amyloid.yaml:
+# f32, 256 px) on synthetic domain folders; its global batch of 128, which the
+# reference split over several GPUs, is cut to 32 for one card
+ANY2ANY_OVERRIDES = [
+    "experiment=any2any_he_amyloid",
+    "trainer.accelerator=gpu",
+    "data.class_folder_mapping={0: HE, 1: IHC, 2: Grayscale}",
+    "data.batch_size=32",
+    "trainer.min_epochs=1",
+    "trainer.max_epochs=1",
+    "test=true",
+    REMAT_OVERRIDE,
+]
+ANY2ANY_TILES = 320  # val_split 0.2: 256 training tiles (8 steps of 32), 64 val tiles
 # each training path: its overrides and the folder of its synthetic data
 TRAIN_PATHS = {
     "train": (TRAIN_OVERRIDES, "data"),
     "train-fused": (TRAIN_OVERRIDES + [FUSED_OVERRIDE], "data"),
     "train-f32": (TRAIN_F32_OVERRIDES, "data-512"),
+    "train-remat": (TRAIN_F32_OVERRIDES + [REMAT_OVERRIDE], "data-512"),
+    "train-fused-remat": (TRAIN_OVERRIDES + [FUSED_OVERRIDE, REMAT_OVERRIDE], "data"),
+    "train-any2any": (ANY2ANY_OVERRIDES, "domains"),
 }
+F32_PATHS = ("train-f32", "train-remat", "train-any2any")
 
 
-def phase_train(card: str, work: Path, name: str = "train") -> dict:
+def phase_train(card: str, work: Path, name: str = "train") -> tuple[dict, dict]:
     """A training path of ``TRAIN_PATHS`` at full width through
     ``stain2stain_tpu_torch.train``: ``train`` (bf16-mixed, 256 px, batch 32),
     ``train-fused`` (the same with ``+model.net.fused_conv=true``: the
-    ResBlocks through K2–K5), ``train-f32`` (f32, 512 px, batch 6). The
-    synthetic data under ``work`` is made once per folder and reused."""
+    ResBlocks through K2–K5), ``train-f32`` (f32, 512 px, batch 6),
+    ``train-remat`` and ``train-fused-remat`` (``train-f32`` and
+    ``train-fused`` with ``use_checkpoint=level``), ``train-any2any`` (the
+    any2any experiment, f32, 256 px, batch 32, level remat; its domain
+    folders made by the caller). The synthetic data under ``work`` is made
+    once per folder and reused. Returns (summary, the objects ``train``
+    built)."""
     import torch
 
     from stain2stain_tpu_torch.config import compose
@@ -889,7 +938,8 @@ def phase_train(card: str, work: Path, name: str = "train") -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # torch's defaults for training:
     torch.backends.cudnn.allow_tf32 = True  # f32 matmul, TF32 cuDNN convs
-    fused = name == "train-fused"
+    fused = FUSED_OVERRIDE in TRAIN_PATHS[name][0]
+    remat = REMAT_OVERRIDE in TRAIN_PATHS[name][0]
     path_overrides, data = TRAIN_PATHS[name]
     overrides = path_overrides + [f"data.data_dir={work / data}"]
     cfg = compose(REPO / "configs", "train.yaml", overrides)
@@ -928,6 +978,7 @@ def phase_train(card: str, work: Path, name: str = "train") -> dict:
         k2_launches=k2, k3_launches=k3, k4_launches=k4, k5_launches=k5,
         val_loss=metrics.get("val/loss"), test_loss=metrics.get("test/loss"),
         best=Path(ckpt.best_model_path).name if ckpt and ckpt.best_model_path else None,
+        best_path=ckpt.best_model_path if ckpt else None,
         n_params=sum(p.numel() for p in objects["model"].net.parameters()),
         dtype=str(objects["model"].net.dtype),
     )
@@ -939,17 +990,24 @@ def phase_train(card: str, work: Path, name: str = "train") -> dict:
         raise AssertionError("training wrote no best or last checkpoint")
     if bwd_launches == 0 or bwd_launches != steps:
         raise AssertionError(f"K1-bwd launches {bwd_launches} != backward passes {steps}")
-    if (name == "train-f32") != (summary["dtype"] == "torch.float32"):
+    if (name in F32_PATHS) != (summary["dtype"] == "torch.float32"):
         raise AssertionError(f"{name} computed in {summary['dtype']}")
-    if fwd_launches == 0 or fwd_launches != clock.forwards[0]:
-        raise AssertionError(f"K1-fwd launches {fwd_launches} != net forward calls {clock.forwards[0]}")
-    want_fwd, want_bwd = (FLAGSHIP_FUSED_CONVS * clock.forwards[0], FLAGSHIP_FUSED_CONVS * steps) if fused else (0, 0)
+    # level remat recomputes every region in each backward pass: the mid
+    # block's K1-fwd and every fused ResBlock's K2 once more a step
+    recomputes = steps if remat else 0
+    if fwd_launches == 0 or fwd_launches != clock.forwards[0] + recomputes:
+        raise AssertionError(
+            f"K1-fwd launches {fwd_launches} != net forward calls {clock.forwards[0]} + recomputes {recomputes}"
+        )
+    want_fwd = FLAGSHIP_FUSED_CONVS * (clock.forwards[0] + recomputes) if fused else 0
+    want_bwd = FLAGSHIP_FUSED_CONVS * steps if fused else 0
     if k2 != want_fwd or (k3, k4, k5) != (want_bwd,) * 3 or (fused and k2 == 0):
         raise AssertionError(
             f"K2-K5 launches {(k2, k3, k4, k5)} != ({want_fwd}, {want_bwd}, {want_bwd}, {want_bwd}): "
-            f"{FLAGSHIP_FUSED_CONVS} per net forward and per backward pass with fused_conv, none without"
+            f"{FLAGSHIP_FUSED_CONVS} per net forward (and per recompute under level remat) and per backward "
+            "pass with fused_conv, none without"
         )
-    if fused:
+    if name == "train-fused":
         # the fused run's weights through the unfused net: the same val loss, since
         # both paths compute one function (a different loss than the unfused run's
         # comes from the weights training reached, not from the path)
@@ -966,7 +1024,7 @@ def phase_train(card: str, work: Path, name: str = "train") -> dict:
         log(f"{name}-cross-eval " + json.dumps({"val_loss": summary["val_loss"], "unfused_path": cross}))
         if abs(cross - summary["val_loss"]) > 1e-2 * summary["val_loss"]:
             raise AssertionError(f"the fused run's weights give another val loss through the unfused net: {cross}")
-    return summary
+    return summary, objects
 
 
 def phase_fused_grad_parity() -> dict:
@@ -1079,6 +1137,360 @@ def phase_grad_parity() -> dict:
     if not row["ok"]:
         raise AssertionError(f"f32 flagship gradients on the card disagree with the CPU plain path: {row}")
     return row
+
+
+REMAT_MODES = [False, "block", "level", "block:2", "level:2"]
+REMAT_STEPS = 4  # timed steps a mode, after one warm-up step
+# remat against no remat on the card, f32, TF32 off, deterministic cuDNN: the
+# recompute runs the same kernels on the same inputs, so bit for bit expected
+REMAT_REL_TOL = 1e-6
+
+
+def phase_remat_modes(card: str) -> list:
+    """Each ``use_checkpoint`` mode of ``REMAT_MODES`` at phase 8's operating
+    point (the flagship, f32, 512 px, batch 6), through the trainer's own
+    step: peak device memory (reset after a warm-up step, so it holds the
+    parameters, gradients, Adam state and one step's activations), the median
+    step time, K1-fwd / K1-bwd launches a step, and the device memory one
+    training forward leaves for its backward. K1-fwd launches twice a
+    step where the mid block is rematted (``block``, ``level``), once
+    otherwise; K1-bwd once."""
+    import numpy as np
+    import torch
+
+    from stain2stain_tpu_torch.config import compose, instantiate
+    from stain2stain_tpu_torch.ops.attention import fused_attention, fused_attention_backward
+    from stain2stain_tpu_torch.training import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # torch's defaults for training
+    torch.backends.cudnn.allow_tf32 = True
+    cfg = compose(REPO / "configs", "train.yaml", TRAIN_F32_OVERRIDES)
+    rng = np.random.default_rng(0)
+    batch = tuple(torch.from_numpy(rng.integers(0, 256, (6, 512, 512, 3), dtype=np.uint8)).cuda() for _ in range(2))
+    augment = {"crop_size": 512, "hflip": True, "vflip": True}
+    rows = []
+    for mode in REMAT_MODES:
+        torch.manual_seed(0)
+        net = instantiate(cfg.model.net, device="cuda", use_checkpoint=mode)
+        task = instantiate(cfg.model, net=net, device="cuda")
+        trainer = Trainer(accelerator="gpu", precision=32, logger=False)
+        trainer._prepare_task(task)
+        trainer._init_state(task)
+        trainer._train_step(task, batch, augment)  # Adam state made, cuDNN algorithms chosen
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_attention.launches = 0
+        fused_attention_backward.launches = 0
+        times = []
+        for _ in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            trainer._train_step(task, batch, augment)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        k1_fwd, k1_bwd = fused_attention.launches / REMAT_STEPS, fused_attention_backward.launches / REMAT_STEPS
+        # what the forward leaves for the backward: device memory held after one
+        # training forward (the loss kept), beyond what was held before it
+        before = torch.cuda.memory_allocated()
+        prepared = task.prepare_batch(batch, torch.Generator().manual_seed(1), train=True, augment=augment)
+        loss, _ = task.loss_and_metrics(prepared, torch.Generator().manual_seed(1), train=True)
+        torch.cuda.synchronize()
+        held = (torch.cuda.memory_allocated() - before) / 2**30
+        loss.backward()
+        trainer.state.optimizer.zero_grad(set_to_none=True)
+        del prepared, loss
+        row = dict(card=card, mode=str(mode), batch=6, px=512, peak_mem_gib=peak, held_after_forward_gib=held,
+                   step_ms=statistics.median(times) * 1e3, step_ms_all=[t * 1e3 for t in times],
+                   k1_fwd_per_step=k1_fwd, k1_bwd_per_step=k1_bwd)
+        log("remat-mode " + json.dumps(row))
+        rows.append(row)
+        del net, task, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    stored = rows[0]["peak_mem_gib"]
+    for row in rows:
+        want_fwd = 2 if row["mode"] in ("block", "level") else 1
+        if (row["k1_fwd_per_step"], row["k1_bwd_per_step"]) != (want_fwd, 1):
+            raise AssertionError(f"remat mode {row['mode']}: K1 launches a step {row} (want {want_fwd} and 1)")
+        if row["mode"] != "False" and row["peak_mem_gib"] >= stored:
+            raise AssertionError(f"remat mode {row['mode']} peaks at {row['peak_mem_gib']} GiB, no less than {stored}")
+    return rows
+
+
+def phase_remat_parity() -> dict:
+    """One f32 step of the flagship at 512 px, batch 2 (TF32 off,
+    deterministic cuDNN, dropout 0.1, one generator seed) under each mode of
+    ``REMAT_MODES`` against the step without remat: the loss and every
+    gradient within ``REMAT_REL_TOL`` × max|g|, and the generator left in the
+    same state (the dropout seeds are drawn once, before the regions)."""
+    import numpy as np
+    import torch
+
+    from stain2stain_tpu_torch.config import compose, instantiate
+    from stain2stain_tpu_torch.ops.attention import fused_attention
+    from stain2stain_tpu_torch.tasks import ConditionalFlowMatchingModule
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    cfg = compose(REPO / "configs", "train.yaml", TRAIN_F32_OVERRIDES + ["model.net.dropout=0.1"])
+    torch.manual_seed(0)
+    state = instantiate(cfg.model.net, device="cuda").state_dict()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    with torch.no_grad():  # jitter every parameter: ADM zero-inits the output convs
+        for v in state.values():
+            v.add_(0.02 * torch.randn(v.shape, device="cuda", generator=gen))
+    rng = np.random.default_rng(4)
+    batch = tuple(rng.integers(0, 256, size=(2, 512, 512, 3), dtype=np.uint8) for _ in range(2))
+    t = torch.tensor([0.3, 0.8])
+    out = {}
+    try:
+        for mode in REMAT_MODES:
+            net = instantiate(cfg.model.net, device="cuda", use_checkpoint=mode)
+            net.load_state_dict(state)
+            task = ConditionalFlowMatchingModule(net=net, device="cuda")
+            prepared = task.prepare_batch(batch, train=False)
+            seeds = torch.Generator().manual_seed(7)
+            before = fused_attention.launches
+            loss, _ = task.loss_and_metrics(prepared, seeds, train=True, t=t)
+            loss.backward()
+            torch.cuda.synchronize()
+            out[str(mode)] = (loss.item(), {n: p.grad.detach() for n, p in net.named_parameters()},
+                              seeds.get_state(), fused_attention.launches - before)
+            del net, task, prepared, loss
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    ref_loss, ref_grads, ref_state, _ = out["False"]
+    g_max = max(g.abs().max().item() for g in ref_grads.values())
+    rows = {}
+    for mode, (loss, grads, gen_state, k1) in out.items():
+        err = max((grads[n] - g).abs().max().item() for n, g in ref_grads.items())
+        rows[mode] = dict(loss=loss, loss_equal=loss == ref_loss, max_abs_grad_err=err, ref_max_abs_grad=g_max,
+                          bit_for_bit=loss == ref_loss and err == 0.0,
+                          generator_state_equal=bool(torch.equal(gen_state, ref_state)), k1_fwd_launches=k1)
+    ok = all(abs(r["loss"] - ref_loss) <= REMAT_REL_TOL * abs(ref_loss) and r["max_abs_grad_err"] <= REMAT_REL_TOL * g_max
+             and r["generator_state_equal"] for r in rows.values())
+    result = dict(ok=ok, tol_rel=REMAT_REL_TOL, modes=rows)
+    log("remat-parity " + json.dumps(result))
+    del out
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"a remat mode's step differs from the stored step on the card: {result}")
+    return result
+
+
+GENERATE_ALL_REL_TOL = 1e-4  # one batched integration against three, TF32 off: summation order only
+
+
+def phase_serve_any2any(card: str, task) -> dict:
+    """The any2any task trained in ``train-any2any``, its weights jittered (std
+    0.02, as phase 5), behind the class-conditioned ``TranslationServer``
+    over HTTP: one PNG request for each class 0, 1, 2; the three outputs must
+    differ and K1-fwd must launch once per velocity evaluation. Then
+    ``generate_all_classes`` on 16 tiles (K1-fwd at BH 768) against
+    ``generate`` per class, TF32 off."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from stain2stain_tpu_torch.ops.attention import fused_attention
+    from stain2stain_tpu_torch.ops.solvers import SolverConfig
+    from stain2stain_tpu_torch.server import TranslationServer, serve_forever
+    from stain2stain_tpu_torch.tasks import ClassConditionalFlowMatchingModule
+    from stain2stain_tpu_torch.wsi import tile_starts
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # torch's defaults for serving
+    torch.backends.cudnn.allow_tf32 = True
+    net = task.net
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(0.02 * torch.randn(p.shape, device=p.device, generator=gen))
+    evals = [0]
+    hook = net.register_forward_hook(lambda *_: evals.__setitem__(0, evals[0] + 1))
+    task = ClassConditionalFlowMatchingModule(net=net, solver=SolverConfig("euler"), num_classes=net.num_classes)
+    # ---- the main path: counts zeroed just before, read just after --------
+    fused_attention.launches = 0
+    evals[0] = 0
+    t0 = time.perf_counter()
+    server = TranslationServer(task, num_steps=2, tile=256, overlap=32, batch=16)
+    warm_s = time.perf_counter() - t0
+    ready = threading.Event()
+    thread = threading.Thread(target=serve_forever, args=(server, "127.0.0.1", 0, ready), daemon=True)
+    thread.start()
+    img = _test_image(700, 520, seed=21)
+    n_tiles = len(tile_starts(700, 256, 224)) * len(tile_starts(520, 256, 224))
+    outs, requests = {}, []
+    try:
+        if not ready.wait(30):
+            raise RuntimeError("server did not bind")
+        base = f"http://127.0.0.1:{server.bound_port}"
+        for cls in (0, 1, 2):
+            req = urllib.request.Request(f"{base}/translate?target_class={cls}", data=_png(img),
+                                         headers={"Content-Type": "image/png"})
+            t1 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                status, payload = resp.status, resp.read()
+            latency = time.perf_counter() - t1
+            outs[cls] = np.asarray(Image.open(io.BytesIO(payload)).convert("RGB")).astype(np.float32)
+            if status != 200 or outs[cls].shape != img.shape:
+                raise AssertionError(f"bad response {status} {outs[cls].shape} for class {cls}")
+            requests.append(dict(target_class=cls, latency_s=latency, tiles=n_tiles,
+                                 mean_abs_change=float(np.abs(outs[cls] - img).mean())))
+            log("any2any-request " + json.dumps(requests[-1]))
+        info = json.loads(urllib.request.urlopen(f"{base}/info", timeout=60).read())
+    finally:
+        if server.httpd is not None:
+            server.httpd.shutdown()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise RuntimeError("server thread did not stop")
+    launches, total_evals = fused_attention.launches, evals[0]
+    # ---- end of the main path ---------------------------------------------
+    diffs = {f"{a}-{b}": float(np.abs(outs[a] - outs[b]).mean()) for a, b in ((0, 1), (0, 2), (1, 2))}
+    if launches == 0 or launches != total_evals:
+        raise AssertionError(f"K1 launches {launches} != velocity evaluations {total_evals}")
+    if min(diffs.values()) < 0.5 or not info["class_conditioned"]:
+        raise AssertionError(f"the classes translate alike (mean abs grey-level differences {diffs}) or {info}")
+
+    torch.backends.cudnn.allow_tf32 = False
+    src = torch.from_numpy(
+        np.stack([_test_image(256, 256, seed=300 + i) for i in range(16)]).astype(np.float32) / 127.5 - 1.0
+    ).cuda()
+    before, evals_before = fused_attention.launches, evals[0]
+    every = task.generate_all_classes(src, num_steps=2)
+    all_launches, all_evals = fused_attention.launches - before, evals[0] - evals_before
+    hook.remove()
+    per_class = torch.stack([task.generate(src, num_steps=2, target_class=c) for c in range(3)])
+    # warm now (cuDNN's algorithms chosen for both shapes): the 48-tile call against three 16-tile calls
+    all_s = cuda_ms(lambda: task.generate_all_classes(src, num_steps=2), repeats=5) / 1e3
+    per_class_s = cuda_ms(lambda: [task.generate(src, num_steps=2, target_class=c) for c in range(3)], repeats=5) / 1e3
+    err = (every - per_class).abs().max().item()
+    tol = GENERATE_ALL_REL_TOL * max(1.0, per_class.abs().max().item())
+    result = dict(card=card, warmup_s=warm_s, requests=requests, velocity_evals=total_evals, k1_launches=launches,
+                  class_mean_abs_diffs=diffs, info=info, generate_all_classes_s=all_s, per_class_generate_s=per_class_s,
+                  generate_all_classes_k1_launches=all_launches, generate_all_max_abs_err=err, generate_all_tol=tol)
+    log("serve-any2any " + json.dumps(result))
+    if (err > tol or all_launches == 0 or all_launches != all_evals or not torch.isfinite(every).all()
+            or every.shape != (3, 16, 256, 256, 3)):
+        raise AssertionError(f"generate_all_classes disagrees with per-class generate: {result}")
+    return result
+
+
+# phase 7's data and trainer for the eval CLIs (its overrides: quality_synthetic_256 with 256 training tiles)
+EVAL_DATA = ["data=synthetic", "data.tile_size=256", "data.image_size=256", "data.n_train=256", "data.n_val=32",
+             "data.n_test=32", "data.deterministic=true"]
+
+
+def _cli(module, argv: list, root: Path):
+    """``module.main(argv)`` with ``PROJECT_ROOT`` at ``root`` (its run
+    directory goes there), its standard output captured: (result, output)."""
+    import contextlib
+
+    before = os.environ.get("PROJECT_ROOT")
+    os.environ["PROJECT_ROOT"] = str(root)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            result = module.main(argv)
+    finally:
+        os.environ["PROJECT_ROOT"] = before or str(REPO)
+    return result, buf.getvalue()
+
+
+def phase_eval(card: str, work: Path, train_summary: dict, any2any_summary: dict) -> dict:
+    """The evaluation slice on the card, on phase 7's best checkpoint:
+    ``eval`` (its test loss equal to phase 7's within 1e-6 relative),
+    ``eval_quality`` (euler, 4 steps, 2 test batches: one JSON line,
+    ``fid_comparable`` false, SSIM in [-1, 1]), ``ssim``/``psnr`` and the
+    Inception ``pool3_features`` (numpy-drawn weights) on the card against the
+    CPU, ``infer_wsi`` on phase 5's 1000×900 test image,
+    ``infer_simple_flowmatching``, and ``infer_any2any`` on the any2any
+    checkpoint."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from stain2stain_tpu_torch import eval as eval_cli
+    from stain2stain_tpu_torch import eval_quality, infer_any2any, infer_simple_flowmatching, infer_wsi
+    from stain2stain_tpu_torch.ops import inception, metrics
+    from stain2stain_tpu_torch.utils.seed import seed_everything
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    best, data = train_summary["best_path"], f"data.data_dir={work / 'data'}"
+    out: dict = {"card": card}
+    seed_everything(0)  # what a fresh eval process starts from: phase 7's seed (quality_synthetic_256)
+    t0 = time.perf_counter()
+    got, _ = _cli(eval_cli, EVAL_DATA + [data, "data.batch_size=32", "data.cache=device", "trainer.accelerator=gpu",
+                                         "trainer.precision=bf16-mixed", f"ckpt_path={best}",
+                                         "extras.print_config=false"], work)
+    out["eval"] = dict(test_loss=got["test/loss"], phase7_test_loss=train_summary["test_loss"],
+                       s=time.perf_counter() - t0)
+    rel = abs(got["test/loss"] - train_summary["test_loss"]) / abs(train_summary["test_loss"])
+    out["eval"]["rel_diff"] = rel
+    log("eval " + json.dumps(out["eval"]))
+    if rel > 1e-6:
+        raise AssertionError(f"eval's test loss differs from phase 7's: {out['eval']}")
+
+    infer = EVAL_DATA + [data, "data.batch_size=16", f"ckpt_path={best}", "model.solver.solver=euler"]
+    t0 = time.perf_counter()
+    quality, printed = _cli(eval_quality, infer + ["num_steps=4", "n_batches=2"], work)
+    lines = [ln for ln in printed.splitlines() if ln.strip()]
+    out["eval_quality"] = dict(quality, s=time.perf_counter() - t0)
+    log("eval-quality " + json.dumps(out["eval_quality"]))
+    if (len(lines) != 1 or json.loads(lines[0]) != quality or quality["fid_comparable"] is not False
+            or not -1.0 <= quality["ssim"] <= 1.0 or not math.isfinite(quality["fid"])):
+        raise AssertionError(f"eval_quality printed {printed!r}")
+
+    rng = np.random.default_rng(8)
+    a = rng.uniform(0, 1, (8, 256, 256, 3)).astype(np.float32)
+    b = np.clip(a + 0.1 * rng.standard_normal(a.shape).astype(np.float32), 0, 1)
+    pairs = {dev: (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)) for dev in ("cuda", "cpu")}
+    vals = {dev: (float(metrics.ssim(*ab)), float(metrics.psnr(*ab))) for dev, ab in pairs.items()}
+    out["metrics"] = dict(ssim_card=vals["cuda"][0], ssim_cpu=vals["cpu"][0], psnr_card=vals["cuda"][1],
+                          psnr_cpu=vals["cpu"][1],
+                          ssim_ms=cuda_ms(lambda: metrics.ssim(*pairs["cuda"]), repeats=10),
+                          psnr_ms=cuda_ms(lambda: metrics.psnr(*pairs["cuda"]), repeats=10))
+    x = rng.uniform(0, 1, (4, 256, 256, 3)).astype(np.float32)
+    feats = {dev: inception.pool3_features(inception.init_params(seed=0, device=dev), torch.from_numpy(x).to(dev))
+             for dev in ("cuda", "cpu")}
+    ref = feats["cpu"]
+    out["metrics"]["pool3_rel_err"] = (feats["cuda"].cpu() - ref).abs().max().item() / ref.abs().max().item()
+    params = inception.init_params(seed=0, device="cuda")
+    xc = torch.from_numpy(x).cuda()
+    out["metrics"]["pool3_ms_batch4"] = cuda_ms(lambda: inception.pool3_features(params, xc), repeats=5)
+    log("eval-metrics " + json.dumps(out["metrics"]))
+    if (abs(vals["cuda"][0] - vals["cpu"][0]) > 1e-5 or abs(vals["cuda"][1] - vals["cpu"][1]) > 1e-5
+            or out["metrics"]["pool3_rel_err"] > 1e-4):
+        raise AssertionError(f"the metrics on the card disagree with the CPU: {out['metrics']}")
+
+    slide = _test_image(1000, 900, seed=1000 * 900)
+    np.save(work / "slide.npy", slide)
+    t0 = time.perf_counter()
+    path, _ = _cli(infer_wsi, [f"input={work / 'slide.npy'}", f"output={work / 'slide_out.png'}", f"ckpt_path={best}",
+                               "num_steps=2", "model.solver.solver=euler"], work)
+    translated = np.asarray(Image.open(path))
+    out["infer_wsi"] = dict(shape=list(translated.shape), s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    panels, _ = _cli(infer_simple_flowmatching, infer + ["num_steps=2", "n_images=4"], work)
+    simple = sorted(panels.iterdir())
+    out["infer_simple_flowmatching"] = dict(panels=len(simple), panel_shape=list(np.asarray(Image.open(simple[0])).shape),
+                                            s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    panels, _ = _cli(infer_any2any, [
+        "model=class_conditional_flow_matching", "data=class_conditional_he_amyloid", f"data.data_dir={work / 'domains'}",
+        "data.class_folder_mapping={0: HE, 1: IHC, 2: Grayscale}", "data.batch_size=16",
+        f"ckpt_path={any2any_summary['best_path']}", "num_steps=2", "n_images=4", "model.solver.solver=euler"], work)
+    any2any = sorted(panels.iterdir())
+    out["infer_any2any"] = dict(panels=len(any2any), panel_shape=list(np.asarray(Image.open(any2any[0])).shape),
+                                s=time.perf_counter() - t0)
+    log("eval-clis " + json.dumps({k: out[k] for k in ("infer_wsi", "infer_simple_flowmatching", "infer_any2any")}))
+    if (translated.shape != slide.shape or out["infer_simple_flowmatching"]["panel_shape"] != [256, 768, 3]
+            or len(simple) != 4 or len(any2any) != 4 or out["infer_any2any"]["panel_shape"] != [256, 1024, 3]):
+        raise AssertionError(f"an inference CLI wrote the wrong images: {out}")
+    return out
 
 
 def _device_us(event) -> float:
@@ -1305,56 +1717,97 @@ def main() -> int:
     if missing or any(spills.values()):
         raise AssertionError(f"ptxas spilled in a checked kernel, or reported none for {missing}: {spills}")
 
+    seconds: dict = {}
+
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        seconds[label] = time.perf_counter() - t
+        log(f"phase {label}: {seconds[label]:.1f} s")
+        return result
+
     # 3-4. K1-fwd and K1-bwd against their plain versions
-    k1 = phase_kernels(exp_per_s)
-    k1_bwd = phase_k1_bwd(exp_per_s)
+    k1 = timed("k1-fwd", phase_kernels, exp_per_s)
+    k1_bwd = timed("k1-bwd", phase_k1_bwd, exp_per_s)
 
     # 5. the serving path at full width
-    summary, net = phase_slice(card)
+    summary, net = timed("serve", phase_slice, card)
 
     # 6. kernel path vs plain path, end to end
-    parity = phase_unet_parity(net)
+    parity = timed("unet-parity", phase_unet_parity, net)
     if args.profile:
         phase_profile(net, card)
     del net
     torch.cuda.empty_cache()
 
-    # 7. the training path at full width, its files in a gitignored scratch dir
+    # 7-15 write their synthetic data and checkpoints in a gitignored scratch dir
     (REPO / "scratch").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_", dir=REPO / "scratch") as work:
-        train_summary = phase_train(card, Path(work))
+        work = Path(work)
+        # 7. the training path at full width
+        train_summary, _ = timed("train", phase_train, card, work)
         torch.cuda.empty_cache()
 
         # 8. f32 training at 512 px, batch 6: the f32 K1-fwd and K1-bwd
-        f32_summary = phase_train(card, Path(work), "train-f32")
+        f32_summary, _ = timed("train-f32", phase_train, card, work, "train-f32")
         torch.cuda.empty_cache()
         if args.profile:
             phase_profile_train(card, "profile-train-f32")
             torch.cuda.empty_cache()
 
         # 9. f32 gradients, card vs CPU
-        grad = phase_grad_parity()
+        grad = timed("grad-parity", phase_grad_parity)
         if args.profile:
             torch.cuda.empty_cache()
             phase_profile_train(card)
 
         # 10. K2-K5 against their plain versions
         torch.cuda.empty_cache()
-        convs = phase_conv_kernels(exp_per_s)
-        phase_conv_sweep(exp_per_s)
+        convs = timed("k2-k5", phase_conv_kernels, exp_per_s)
+        timed("conv-sweep", phase_conv_sweep, exp_per_s)
 
         # 11. the training path with fused_conv=true, on the same synthetic data
         torch.cuda.empty_cache()
-        fused_summary = phase_train(card, Path(work), "train-fused")
-    torch.cuda.empty_cache()
-
-    # 12. the fused path's bf16 gradients, card vs CPU
-    fused_grad = phase_fused_grad_parity()
-    if args.profile:
+        fused_summary, _ = timed("train-fused", phase_train, card, work, "train-fused")
         torch.cuda.empty_cache()
-        phase_profile_train(card, "profile-train-fused")
 
-    # 13. result lines
+        # 12. the fused path's bf16 gradients, card vs CPU
+        fused_grad = timed("fused-grad-parity", phase_fused_grad_parity)
+        if args.profile:
+            torch.cuda.empty_cache()
+            phase_profile_train(card, "profile-train-fused")
+        torch.cuda.empty_cache()
+
+        # 13. train-remat: phase 8's operating point with use_checkpoint=level through
+        # the entry point, every mode's memory and step, remat against no remat, and
+        # the fused path with level remat
+        remat_summary, _ = timed("train-remat", phase_train, card, work, "train-remat")
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed("remat-modes", phase_remat_modes, card)
+        timed("remat-parity", phase_remat_parity)
+        fused_remat_summary, _ = timed("train-fused-remat", phase_train, card, work, "train-fused-remat")
+        torch.cuda.empty_cache()
+
+        # 14. any2any: the experiment through the entry point, then served per class
+        from stain2stain_tpu_torch.data.synthetic import generate_domain_folders
+
+        timed("any2any-data", generate_domain_folders, work / "domains", ("HE", "IHC", "Grayscale"),
+              ANY2ANY_TILES, 256, 0)
+        log("train-any2any: data.batch_size=32, cut from the experiment's global batch of 128 "
+            "(the reference split it over several GPUs)")
+        any2any_summary, any2any_objects = timed("train-any2any", phase_train, card, work, "train-any2any")
+        serve_any2any = timed("serve-any2any", phase_serve_any2any, card, any2any_objects["model"])
+        del any2any_objects
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 15. evaluation and the inference CLIs
+        timed("eval", phase_eval, card, work, train_summary, any2any_summary)
+    torch.cuda.empty_cache()
+    log("phase-seconds " + json.dumps(seconds))
+
+    # 16. result lines
     def row(name, source, replaces, case, launches, by_path, passed):
         return {
             "name": name,
@@ -1390,16 +1843,21 @@ def main() -> int:
         row("attention_fwd (K1-fwd)", "stain2stain_tpu_torch/csrc/attention_fwd.cu",
             "stain2stain_tpu/ops/pallas_attention.py:64", k1["cases"][0], summary["k1_launches"],
             {"serve": summary["k1_launches"], "train": train_summary["k1_fwd_launches"],
-             "train_f32": f32_summary["k1_fwd_launches"], "train_fused": fused_summary["k1_fwd_launches"]},
+             "train_f32": f32_summary["k1_fwd_launches"], "train_fused": fused_summary["k1_fwd_launches"],
+             "train_remat": remat_summary["k1_fwd_launches"], "train_fused_remat": fused_remat_summary["k1_fwd_launches"],
+             "train_any2any": any2any_summary["k1_fwd_launches"], "serve_any2any": serve_any2any["k1_launches"]},
             all(c["ok"] for c in k1["cases"]) and parity["ok"]),
         row("attention_bwd (K1-bwd)", "stain2stain_tpu_torch/csrc/attention_bwd.cu",
             "stain2stain_tpu/ops/pallas_attention.py:78", k1_bwd["cases"][0], train_summary["k1_bwd_launches"],
             {"train": train_summary["k1_bwd_launches"], "train_f32": f32_summary["k1_bwd_launches"],
-             "train_fused": fused_summary["k1_bwd_launches"]},
+             "train_fused": fused_summary["k1_bwd_launches"], "train_remat": remat_summary["k1_bwd_launches"],
+             "train_fused_remat": fused_remat_summary["k1_bwd_launches"],
+             "train_any2any": any2any_summary["k1_bwd_launches"]},
             all(c["ok"] for c in k1_bwd["cases"]) and grad["ok"]),
     ] + [
         row(title, f"stain2stain_tpu_torch/csrc/{source}", replaces, convs["rows"][k][0], fused_summary[key],
-            {"train_fused": fused_summary[key]}, all(c["ok"] for c in convs["rows"][k]) and conv_ok)
+            {"train_fused": fused_summary[key], "train_fused_remat": fused_remat_summary[key]},
+            all(c["ok"] for c in convs["rows"][k]) and conv_ok)
         for k, (title, source, replaces, key) in conv_sources.items()
     ]
     log(f"total: {time.perf_counter() - started:.1f} s")

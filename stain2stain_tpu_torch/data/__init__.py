@@ -2,6 +2,16 @@
 host decode → device-side normalization and paired augmentation."""
 
 from .base import DataLoader, DataModule, Dataset, default_collate
+from .class_conditional import ClassConditionalAnyToAnyDataModule, PairedAnyToAnyDataset
 from .paired_data_module import PairedDataModule, PairedDataset
 
-__all__ = ["Dataset", "DataLoader", "DataModule", "default_collate", "PairedDataset", "PairedDataModule"]
+__all__ = [
+    "Dataset",
+    "DataLoader",
+    "DataModule",
+    "default_collate",
+    "PairedDataset",
+    "PairedDataModule",
+    "PairedAnyToAnyDataset",
+    "ClassConditionalAnyToAnyDataModule",
+]

@@ -80,6 +80,9 @@ class DataLoader:
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
+        # datasets with per-epoch draws (the any2any domains) follow the epoch
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
 
     def __len__(self) -> int:
         n = len(self.dataset)

@@ -92,4 +92,30 @@ def generate_paired_dataset(
     return root
 
 
-__all__ = ["generate_paired_dataset", "make_tile_pair"]
+def generate_domain_folders(
+    root: str | Path,
+    domains: tuple[str, ...] = ("HE", "IHC", "Grayscale"),
+    n_images: int = 8,
+    size: int = 64,
+    seed: int = 0,
+) -> Path:
+    """The any2any layout: ``root/<domain>/<shared filename>`` per domain, a
+    grayscale view of the H&E tile as the third stain."""
+    import cv2
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    for i in range(n_images):
+        he, ihc, _ = make_tile_pair(rng, size)
+        gray = np.repeat(
+            (0.3 * he[..., 0] + 0.6 * he[..., 1] + 0.1 * he[..., 2]).astype(np.uint8)[..., None], 3, axis=-1
+        )
+        views = {"HE": he, "IHC": ihc, "Grayscale": gray}
+        fname = f"tile_{i:04d}.png"
+        for dom in domains:
+            (root / dom).mkdir(parents=True, exist_ok=True)
+            cv2.imwrite(str(root / dom / fname), cv2.cvtColor(views.get(dom, he), cv2.COLOR_RGB2BGR))
+    return root
+
+
+__all__ = ["generate_paired_dataset", "generate_domain_folders", "make_tile_pair"]

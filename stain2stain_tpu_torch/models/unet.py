@@ -37,8 +37,31 @@ permutes to NHWC at its boundary and returns an NCHW view of NHWC memory, so
 consecutive fused blocks pass NHWC memory without a transpose. State-dict
 keys do not change.
 
-Not in this slice: ``s2b_conv`` (an opt-in conv path) and ``use_checkpoint``
-(training rematerialization) raise ``NotImplementedError``.
+``use_checkpoint`` rematerializes activations in the backward (JAX
+``unet.py:547-653``): False stores everything; True or "block" remats each
+res/attn unit; "level" remats whole resolution levels; "block:K"/"level:K"
+remat only the K shallowest levels and store the deeper ones and the mid
+block. Regions run through ``torch.utils.checkpoint`` (non-reentrant), only in
+training mode with grad enabled, so eval, ``generate`` and ``no_grad``
+callers see no change. Over the torchcfm layout the regions are JAX's:
+
+- down level L: its ``input_blocks`` units (ResBlock + attention) and, inside
+  the region, the downsample that ends the level, so the stored output is
+  the small tensor. Under "block" each unit is a region and a conv/pool
+  downsample is not rematted (a ``resblock_updown`` down ResBlock is);
+- the mid block, one region, only when no depth is given;
+- up level L: the upsample that ends level L+1's last output block (it
+  starts level L's region, so the stored input is the low-resolution
+  tensor), then level L's output blocks, each with its skip concat inside
+  the region, so the double-width tensor is recomputed, not stored. Under
+  "block" each (concat + ResBlock + attention) unit is a region.
+
+Every dropout seed is drawn from the ``generator`` once, in forward order,
+before any region, and handed to its ResBlock: a recompute reuses it, and the
+generator's state after a step is the same with and without remat.
+
+Not in this slice: ``s2b_conv`` (an opt-in conv path) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,6 +71,7 @@ from typing import Any, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..ops import conv as conv_ops
@@ -87,6 +111,27 @@ def _as_dtype(dtype: Any) -> torch.dtype:
     if name not in _DTYPES:
         raise ValueError(f"unsupported dtype {dtype!r}; options: {sorted(_DTYPES)}")
     return _DTYPES[name]
+
+
+def remat_mode(use_checkpoint: Any) -> tuple[Optional[str], Optional[int]]:
+    """(mode, depth) of a ``use_checkpoint`` value, as JAX ``_remat_mode``
+    (``unet.py:596-617``): mode None, "block" or "level"; depth None (every
+    level and the mid block) or K (the K shallowest levels only)."""
+    if use_checkpoint is True:
+        return "block", None
+    if not use_checkpoint:
+        return None, None
+    mode = str(use_checkpoint)
+    depth: Optional[int] = None
+    if ":" in mode:
+        mode, _, d = mode.partition(":")
+        depth = int(d)
+    if mode not in ("block", "level"):
+        raise ValueError(
+            "use_checkpoint must be False/True/'block'/'level' (optionally "
+            f"'block:K'/'level:K' for the K shallowest levels), got {mode!r}"
+        )
+    return mode, depth
 
 
 def _norm(channels: int) -> nn.GroupNorm:
@@ -158,7 +203,7 @@ class ResBlock(nn.Module):
         d = self.out_channels
         return conv_ops.supported((b, h, w, c), (3, 3, c, d)) and conv_ops.supported((b, h, w, d), (3, 3, d, d))
 
-    def _fused_forward(self, x, emb, dtype, generator) -> torch.Tensor:
+    def _fused_forward(self, x, emb, dtype, seed) -> torch.Tensor:
         """JAX ``ResBlock._fused_call`` (``unet.py:236-269``) on NCHW ``x``."""
         norm_in, conv_in = self.in_layers[0], self.in_layers[2]
         norm_out, dropout, conv_out = self.out_layers[0], self.out_layers[2], self.out_layers[3]
@@ -168,14 +213,13 @@ class ResBlock(nn.Module):
         )
         emb_out = _conv(self.emb_layers[1], F.silu(emb.to(dtype)), dtype)
         film_scale, film_shift = torch.chunk(emb_out.to(torch.float32), 2, dim=1)
-        # the seed is drawn where the unfused FastDropout draws it, so one
-        # generator gives both paths the same mask
-        rate = dropout.rate if self.training else 0.0
-        seed = draw_seed(generator) if rate > 0.0 else None
+        # the seed is the unfused FastDropout's, so one generator gives both
+        # paths the same mask
+        rate = dropout.rate if dropout.active() else 0.0
         h = conv_ops.norm_act_conv(
             h, conv_out.weight.permute(2, 3, 1, 0), conv_out.bias, norm_out.weight, norm_out.bias,
             film_scale=film_scale, film_shift=film_shift, groups=norm_out.num_groups, act="silu",
-            dropout_rate=rate, seed=seed,
+            dropout_rate=rate, seed=seed if rate else None,
         )
         if isinstance(self.skip_connection, nn.Conv2d):
             x = _conv(self.skip_connection, x, dtype)
@@ -183,10 +227,14 @@ class ResBlock(nn.Module):
 
     def forward(
         self, x: torch.Tensor, emb: torch.Tensor, dtype: torch.dtype,
-        generator: Optional[torch.Generator] = None,
+        generator: Optional[torch.Generator] = None, seed: Optional[int] = None,
     ) -> torch.Tensor:
+        """``seed``: the dropout seed drawn ahead; None draws it from ``generator``
+        when the dropout is active (training mode, 0 < rate < 1)."""
+        if seed is None and self.out_layers[2].active():
+            seed = draw_seed(generator)
         if self.fused_enabled(x, dtype):
-            return self._fused_forward(x, emb, dtype, generator)
+            return self._fused_forward(x, emb, dtype, seed)
         norm_in = self.in_layers[0]
         h = group_norm_silu(x, norm_in.weight, norm_in.bias, norm_in.num_groups).to(dtype)
         if self.up:
@@ -202,7 +250,7 @@ class ResBlock(nn.Module):
             h = group_norm_film_silu(h, norm_out.weight, norm_out.bias, scale, shift, norm_out.num_groups)
         else:
             h = group_norm_silu(h + emb_out, norm_out.weight, norm_out.bias, norm_out.num_groups)
-        h = self.out_layers[2](h.to(dtype), generator)  # dropout: the identity in eval mode
+        h = self.out_layers[2](h.to(dtype), seed=seed)  # dropout: the identity in eval mode
         h = _conv(self.out_layers[3], h, dtype)
 
         if isinstance(self.skip_connection, nn.Conv2d):
@@ -297,8 +345,7 @@ class UNetModel(nn.Module):
         super().__init__()
         if s2b_conv:
             raise NotImplementedError("s2b_conv is not ported yet")
-        if use_checkpoint:
-            raise NotImplementedError("use_checkpoint (training remat) is not ported yet")
+        self.remat = remat_mode(use_checkpoint)
         if fused_attention is False:
             raise NotImplementedError(
                 "fused_attention=False is not a path of the port: CUDA tensors always "
@@ -337,25 +384,33 @@ class UNetModel(nn.Module):
         skip_chs = [mc]
         level_cfg = []
         n_levels = len(self.channel_mult)
+        # the remat regions over the torchcfm layout (module docstring): per
+        # level, its units' input_blocks indices and its downsample's, if any
+        self._down_levels: list[tuple[int, list[int], Optional[int]]] = []
         for level, mult in enumerate(self.channel_mult):
             out_ch = mult * mc
             heads = heads_for(out_ch) if ds in attn_ds else 0
             level_cfg.append((level, out_ch, heads))
+            units = []
             for _ in range(num_res_blocks):
                 mods = [ResBlock(ch, time_dim, out_ch, **res_kw)]
                 ch = out_ch
                 if heads:
                     mods.append(AttentionBlock(ch, heads))
+                units.append(len(self.input_blocks))
                 self.input_blocks.append(nn.ModuleList(mods))
                 skip_chs.append(ch)
+            down_index = None
             if level != n_levels - 1:
                 if resblock_updown:
                     down = ResBlock(ch, time_dim, ch, down=True, **res_kw)
                 else:
                     down = Downsample(ch, conv_resample)
+                down_index = len(self.input_blocks)
                 self.input_blocks.append(nn.ModuleList([down]))
                 skip_chs.append(ch)
                 ds *= 2
+            self._down_levels.append((level, units, down_index))
 
         self.middle_block = nn.ModuleList(
             [
@@ -366,7 +421,12 @@ class UNetModel(nn.Module):
         )
 
         self.output_blocks = nn.ModuleList()
+        # per level (deepest first) its output_blocks indices; the upsample
+        # that ends a level's last block in this layout starts the next level
+        self._up_levels: list[tuple[int, list[int]]] = []
         for level, out_ch, heads in reversed(level_cfg):
+            first = len(self.output_blocks)
+            self._up_levels.append((level, list(range(first, first + num_res_blocks + 1))))
             for i in range(num_res_blocks + 1):
                 mods = [ResBlock(ch + skip_chs.pop(), time_dim, out_ch, **res_kw)]
                 ch = out_ch
@@ -387,17 +447,35 @@ class UNetModel(nn.Module):
         )
         nn.init.zeros_(self.out[2].weight)
         nn.init.zeros_(self.out[2].bias)
+        # every ResBlock's slot in the seeds drawn ahead: forward order is
+        # registration order
+        self._resblocks = [m for m in self.modules() if isinstance(m, ResBlock)]
+        for i, block in enumerate(self._resblocks):
+            block.seed_slot = i
         self.to(device)
 
-    def _block(self, mods: nn.ModuleList, h: torch.Tensor, emb: torch.Tensor, generator) -> torch.Tensor:
+    def _run(self, mods, h: torch.Tensor, emb: torch.Tensor, seeds: Optional[list]) -> torch.Tensor:
         for m in mods:
             if isinstance(m, ResBlock):
-                h = m(h, emb, self.dtype, generator)
+                h = m(h, emb, self.dtype, seed=seeds[m.seed_slot] if seeds else None)
             elif isinstance(m, nn.Conv2d):  # the stem
                 h = _conv(m, h, self.dtype)
             else:
                 h = m(h, self.dtype)
         return h
+
+    @staticmethod
+    def _region(remat: bool, fn, *args):
+        """``fn(*args)``, rematerialized in the backward when ``remat``. Every
+        random draw of a region (the dropout seeds) is made before it, so the
+        recompute needs no RNG state."""
+        if not remat:
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+    @staticmethod
+    def _level_mode(mode: Optional[str], depth: Optional[int], level: int) -> Optional[str]:
+        return None if mode is None or (depth is not None and level >= depth) else mode
 
     def forward(
         self, t: torch.Tensor, x: torch.Tensor, y: Optional[torch.Tensor] = None,
@@ -418,14 +496,56 @@ class UNetModel(nn.Module):
                 raise ValueError("class-conditional UNet called without labels y")
             emb = emb + self.label_emb(y).to(dtype)
 
-        h = x.permute(0, 3, 1, 2).contiguous()
-        skips = []
-        for mods in self.input_blocks:
-            h = self._block(mods, h, emb, generator)
-            skips.append(h)
-        h = self._block(self.middle_block, h, emb, generator)
-        for mods in self.output_blocks:
-            h = self._block(mods, torch.cat([h, skips.pop()], dim=1), emb, generator)
+        # every dropout seed, in forward order, before any remat region: a
+        # recompute then reuses them, and the generator advances once
+        seeds = [draw_seed(generator) for _ in self._resblocks] if self._resblocks[0].out_layers[2].active() else None
+        mode, depth = self.remat if (self.training and torch.is_grad_enabled()) else (None, None)
+        run = self._run
+
+        h = run(self.input_blocks[0], x.permute(0, 3, 1, 2).contiguous(), emb, seeds)
+        skips = [h]
+        for level, units, down_index in self._down_levels:
+            lm = self._level_mode(mode, depth, level)
+
+            def down_level(h, emb, units=units, down_index=down_index, block=lm == "block"):
+                outs = []
+                for i in units:
+                    h = self._region(block, run, self.input_blocks[i], h, emb, seeds)
+                    outs.append(h)
+                if down_index is not None:  # inside the level: its stored output is the small tensor
+                    mods = self.input_blocks[down_index]
+                    h = self._region(block and isinstance(mods[0], ResBlock), run, mods, h, emb, seeds)
+                    outs.append(h)
+                return tuple(outs)
+
+            outs = self._region(lm == "level", down_level, h, emb)
+            skips.extend(outs)
+            h = outs[-1]
+
+        h = self._region(mode is not None and depth is None, run, self.middle_block, h, emb, seeds)
+
+        def up_unit(mods, h, skip, emb):
+            # the skip concat inside the region: the double-width tensor is recomputed, not stored
+            return run(mods, torch.cat([h, skip], dim=1), emb, seeds)
+
+        resample = None  # the upsample ending the previous (deeper) level's last block
+        for level, units in self._up_levels:
+            lm = self._level_mode(mode, depth, level)
+            tail = self.output_blocks[units[-1]][-1] if level != 0 else None
+
+            def up_level(h, emb, *level_skips, units=units, resample=resample, tail=tail, block=lm == "block"):
+                if resample is not None:
+                    h = self._region(block and isinstance(resample, ResBlock), run, [resample], h, emb, seeds)
+                for i, skip in zip(units, level_skips):
+                    mods = self.output_blocks[i]
+                    if tail is not None and i == units[-1]:
+                        mods = mods[:-1]
+                    h = self._region(block, up_unit, mods, h, skip, emb)
+                return h
+
+            h = self._region(lm == "level", up_level, h, emb, *[skips.pop() for _ in units])
+            resample = tail
+        assert not skips, "skip bookkeeping mismatch"
 
         norm = self.out[0]
         h = group_norm_silu(h, norm.weight, norm.bias, norm.num_groups).to(dtype)
@@ -433,4 +553,4 @@ class UNetModel(nn.Module):
         return h.to(torch.float32).permute(0, 2, 3, 1)
 
 
-__all__ = ["UNetModel", "ResBlock", "AttentionBlock", "Downsample", "Upsample"]
+__all__ = ["UNetModel", "ResBlock", "AttentionBlock", "Downsample", "Upsample", "remat_mode"]

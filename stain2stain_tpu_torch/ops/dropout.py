@@ -105,7 +105,8 @@ class FastDropout(nn.Module):
     """``nn.Dropout`` replacement backed by :func:`hash_dropout` (impl ``"hash"``).
 
     Active in training mode only. ``forward(x, generator)`` draws this call's
-    seed from ``generator``.
+    seed from ``generator``; ``forward(x, seed=s)`` uses the seed ``s`` drawn
+    ahead (the UNet draws every layer's seed before its rematerialized regions).
     """
 
     def __init__(self, rate: float, impl: str = "hash"):
@@ -115,12 +116,18 @@ class FastDropout(nn.Module):
         self.rate = float(rate)
         self.impl = impl
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def active(self) -> bool:
+        """Whether a call draws a seed: training mode and 0 < rate < 1."""
+        return self.training and 0.0 < self.rate < 1.0
+
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None, seed: Optional[int] = None
+    ) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         if self.rate >= 1.0:
             return torch.zeros_like(x)
-        return hash_dropout(x, draw_seed(generator), self.rate)
+        return hash_dropout(x, draw_seed(generator) if seed is None else seed, self.rate)
 
     def extra_repr(self) -> str:
         return f"rate={self.rate}, impl={self.impl!r}"

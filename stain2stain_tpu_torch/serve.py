@@ -1,10 +1,12 @@
 """Serving CLI of the port: a long-lived stain-translation HTTP server.
 
 Counterpart of ``src/serve.py``. Composes ``configs/infer.yaml`` with the
-port's config code, builds only the velocity net (``cfg.model.net``) and the
-solver (``cfg.model.solver``) — serving needs no optimizer — loads the
-weights from a ``.pt`` state dict or a reference Lightning ``.ckpt``, and
-serves on the CUDA card (``device=cpu`` to run on the CPU)::
+port's config code, builds the task of ``cfg.model`` (its class, velocity net
+and solver; a ``model=class_conditional_flow_matching`` net serves every
+target stain, ``target_class`` the default one), loads the weights from a
+``.pt`` state dict, a reference Lightning ``.ckpt`` or a checkpoint directory
+of the port's trainer, and serves on the CUDA card (``device=cpu`` to run on
+the CPU)::
 
     python -m stain2stain_tpu_torch.serve ckpt_path=<.pt|.ckpt> port=8000 \
         num_steps=2 tile=256 overlap=32 wsi_batch=16
@@ -20,10 +22,9 @@ from __future__ import annotations
 import os
 from pathlib import Path
 
-from .compat import load_reference_checkpoint
-from .config import Config, config_main, instantiate
+from .config import Config, config_main
+from .inference import load_task
 from .server import TranslationServer, serve_forever
-from .tasks import ConditionalFlowMatchingModule
 from .utils.pylogger import RankedLogger
 
 log = RankedLogger(__name__, rank_zero_only=True)
@@ -33,11 +34,7 @@ REPO_ROOT = Path(__file__).resolve().parent.parent
 
 def build_server(cfg: Config) -> TranslationServer:
     """The server described by a composed ``infer.yaml`` config."""
-    device = cfg.get("device")
-    net = instantiate(cfg["model"]["net"], device=device)
-    state = load_reference_checkpoint(cfg["ckpt_path"])
-    net.load_state_dict(state, strict=True)
-    task = ConditionalFlowMatchingModule(net=net, solver=instantiate(cfg["model"]["solver"]))
+    task = load_task(cfg)
     return TranslationServer(
         task,
         num_steps=int(cfg.get("num_steps", 2)),

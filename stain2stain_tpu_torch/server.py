@@ -13,8 +13,11 @@ Endpoints:
                                Content-Type: application/x-npy); response:
                                image/png translated at full input size.
 
-The class-conditioned (any2any) server is not ported yet: a ``class_cond``
-net or a ``target_class`` raises ``NotImplementedError``.
+Class conditioning (any2any) is a property of the model (``net.class_cond``):
+such a server translates to its default class (``target_class``, 0 if
+unset) or to the class a request asks for (``POST
+/translate?target_class=K``); a class given to an unconditioned model is
+refused (HTTP 400 for a request).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import numpy as np
 
 from .ops.image import denormalize_np, normalize_uint8_np
 from .utils.pylogger import RankedLogger
-from .wsi import make_tiled_generator, translate_large_image
+from .wsi import make_conditioned_tiled_generator, make_tiled_generator, translate_large_image
 
 log = RankedLogger(__name__, rank_zero_only=True)
 
@@ -48,8 +51,6 @@ class TranslationServer:
         batch: int = 16,
         target_class: Optional[int] = None,
     ):
-        if target_class is not None or getattr(task.net, "class_cond", False):
-            raise NotImplementedError("the class-conditioned (any2any) server is not ported yet")
         self.task = task
         self.num_steps = num_steps
         self.tile = tile
@@ -60,13 +61,27 @@ class TranslationServer:
         # float32 working set (4x input + output/weight accumulators).
         self.max_body_bytes = 64 << 20
         self.max_pixels = 1 << 26  # ~67 MP (an 8k x 8k region)
-        self._gen = make_tiled_generator(task, num_steps=num_steps)
+        # conditioning is a property of the model, not of whether a default
+        # class was configured: an any2any model served without one still
+        # honours per-request classes
+        self.conditioned = bool(getattr(task.net, "class_cond", False))
+        if target_class is not None and not self.conditioned:
+            raise ValueError("target_class given but the model is not class-conditioned")
+        self.default_class = (0 if target_class is None else int(target_class)) if self.conditioned else None
+        if self.conditioned:
+            self._cond_gen = make_conditioned_tiled_generator(task, num_steps=num_steps)
+        else:
+            self._gen = make_tiled_generator(task, num_steps=num_steps)
         self._lock = threading.Lock()  # one request in flight on the card
         self.requests_served = 0
         self.httpd: Optional[ThreadingHTTPServer] = None
         # Warm on a zero batch (kernel build, cuDNN algorithm choice) so
         # /healthz means "ready to serve".
-        self._gen(np.zeros((batch, tile, tile, 3), np.float32))
+        warm = np.zeros((batch, tile, tile, 3), np.float32)
+        if self.conditioned:
+            self._cond_gen(warm, self.default_class)
+        else:
+            self._gen(warm)
 
     def translate(self, img_uint8: np.ndarray, target_class: Optional[int] = None) -> np.ndarray:
         """(H, W, 3) uint8 -> (H, W, 3) float32 in [0, 1], any size."""
@@ -77,12 +92,19 @@ class TranslationServer:
                 f"image {img_uint8.shape[0]}x{img_uint8.shape[1]} exceeds the "
                 f"{self.max_pixels}-pixel serving cap"
             )
-        if target_class is not None:
+        if target_class is not None and not self.conditioned:
             raise ValueError("this model is not class-conditioned; omit target_class")
+        if self.conditioned:
+            cls = self.default_class if target_class is None else int(target_class)
+            if not 0 <= cls < self.task.net.num_classes:
+                raise ValueError(f"target_class {cls} is not in [0, {self.task.net.num_classes})")
+            gen = lambda b: self._cond_gen(b, cls)  # noqa: E731
+        else:
+            gen = self._gen
         normalized = normalize_uint8_np(img_uint8)
         with self._lock:
             out = translate_large_image(
-                self._gen, normalized, tile=self.tile, overlap=self.overlap, batch_size=self.batch
+                gen, normalized, tile=self.tile, overlap=self.overlap, batch_size=self.batch
             )
             self.requests_served += 1
         return denormalize_np(out)
@@ -95,8 +117,8 @@ class TranslationServer:
             "tile": self.tile,
             "overlap": self.overlap,
             "batch": self.batch,
-            "class_conditioned": False,
-            "target_class": None,
+            "class_conditioned": self.conditioned,
+            "target_class": self.default_class,
             "device": str(self.task.device),
             "requests_served": self.requests_served,
         }

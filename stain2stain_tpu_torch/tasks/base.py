@@ -34,7 +34,8 @@ class FlowMatchingTask:
     """Shared machinery for CFM variants.
 
     ``batch_fields`` names each field of a loader batch: ``"image"`` (uint8
-    RGB (B, H, W, 3) → [-1, 1]) or ``"meta"`` (host-only, e.g. filenames).
+    RGB (B, H, W, 3) → [-1, 1]), ``"label"`` (int class ids → int64 on the
+    task's device) or ``"meta"`` (host-only, e.g. filenames).
     ``device``: where the net runs; ``None`` keeps the device the net's
     parameters already lie on (the UNet resolves its own, CUDA by default).
     """
@@ -84,22 +85,29 @@ class FlowMatchingTask:
         train: bool = False,
         augment: Optional[dict] = None,
     ) -> tuple:
-        """Device tensors of a batch's image fields; with ``train`` and
-        ``augment`` one crop and flip shared across the group (applied to the
-        uint8 tiles, before normalization: the same pixels either way)."""
+        """Device tensors of a batch's fields; with ``train`` and ``augment``
+        one crop and flip shared across the image fields (applied to the uint8
+        tiles, before normalization: the same pixels either way)."""
         kinds = [k for k in self.batch_fields if k != "meta"][: len(batch)]
-        if any(kind != "image" for kind in kinds):
-            raise NotImplementedError(f"batch field kinds {kinds} are not ported (only 'image')")
+        if any(kind not in ("image", "label") for kind in kinds):
+            raise NotImplementedError(f"batch field kinds {kinds} are not ported (only 'image' and 'label')")
         arrays = [torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x).to(self.device) for x in batch]
+        images = [i for i, kind in enumerate(kinds) if kind == "image"]
         if train and augment:
-            arrays = paired_random_crop_flip(
-                arrays,
+            cropped = paired_random_crop_flip(
+                [arrays[i] for i in images],
                 crop_size=augment["crop_size"],
                 hflip=augment.get("hflip", True),
                 vflip=augment.get("vflip", True),
                 generator=generator,
             )
-        return tuple(normalize_uint8(x) if x.dtype == torch.uint8 else x.to(torch.float32) for x in arrays)
+            for i, x in zip(images, cropped):
+                arrays[i] = x
+        return tuple(
+            x.to(torch.int64) if kind == "label"
+            else normalize_uint8(x) if x.dtype == torch.uint8 else x.to(torch.float32)
+            for x, kind in zip(arrays, kinds)
+        )
 
     # ----------------------------------------------------------------- model
     def loss_and_metrics(self, batch: tuple, generator: Optional[torch.Generator] = None, train: bool = False):

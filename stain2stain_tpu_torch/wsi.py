@@ -20,6 +20,7 @@ __all__ = [
     "feather_weights",
     "translate_large_image",
     "make_tiled_generator",
+    "make_conditioned_tiled_generator",
 ]
 
 
@@ -99,5 +100,17 @@ def make_tiled_generator(task, num_steps: int) -> Callable[[np.ndarray], np.ndar
     def gen(batch: np.ndarray) -> np.ndarray:
         x = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(task.device)
         return task.generate(x, num_steps=num_steps).to(torch.float32).cpu().numpy()
+
+    return gen
+
+
+def make_conditioned_tiled_generator(task, num_steps: int) -> Callable[[np.ndarray, int], np.ndarray]:
+    """The class-conditioned variant, ``gen(batch, target_class)``: one
+    generator serves every target stain, the class chosen per call."""
+
+    def gen(batch: np.ndarray, target_class: int) -> np.ndarray:
+        x = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(task.device)
+        out = task.generate(x, num_steps=num_steps, target_class=int(target_class))
+        return out.to(torch.float32).cpu().numpy()
 
     return gen

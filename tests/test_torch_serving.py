@@ -170,11 +170,17 @@ def test_http_round_trip(nets):
     assert not thread.is_alive()
 
 
-def test_class_conditioned_server_not_ported(nets):
+def test_unconditioned_server_refuses_a_target_class(nets):
+    """Class conditioning is a property of the model: a class for a net
+    without ``class_cond`` is refused, at construction and per request."""
     _, _, tnet = nets
     task = ConditionalFlowMatchingModule(net=tnet)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="not class-conditioned"):
         TranslationServer(task, num_steps=2, tile=16, overlap=4, batch=2, target_class=1)
+    server = TranslationServer(task, num_steps=2, tile=16, overlap=4, batch=2)
+    assert server.info["class_conditioned"] is False and server.info["target_class"] is None
+    with pytest.raises(ValueError, match="not class-conditioned"):
+        server.translate(np.zeros((16, 16, 3), np.uint8), target_class=1)
 
 
 _TINY_OVERRIDES = [
@@ -277,7 +283,11 @@ def test_port_imports_nothing_of_jax():
         "import stain2stain_tpu_torch.data.synthetic_module, stain2stain_tpu_torch.data.device_cache\n"
         "import stain2stain_tpu_torch.data.native, stain2stain_tpu_torch.utils.utils\n"
         "import stain2stain_tpu_torch.ops.cfm, stain2stain_tpu_torch.ops.dropout, stain2stain_tpu_torch.ops.losses\n"
-        "import stain2stain_tpu_torch.ops.conv\n"
+        "import stain2stain_tpu_torch.ops.conv, stain2stain_tpu_torch.ops.metrics, stain2stain_tpu_torch.ops.inception\n"
+        "import stain2stain_tpu_torch.inference, stain2stain_tpu_torch.eval, stain2stain_tpu_torch.eval_quality\n"
+        "import stain2stain_tpu_torch.infer_simple_flowmatching, stain2stain_tpu_torch.infer_wsi\n"
+        "import stain2stain_tpu_torch.infer_any2any, stain2stain_tpu_torch.data.class_conditional\n"
+        "import stain2stain_tpu_torch.tasks.class_conditional_flow_matching, stain2stain_tpu_torch.wsi\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', 'optax', 'stain2stain_tpu')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'flax.', 'optax.', 'stain2stain_tpu.')))\n"
         "assert 'stain2stain_tpu_torch.serve' in sys.modules and 'stain2stain_tpu_torch.train' in sys.modules\n"
