@@ -16,7 +16,8 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    the card, output and row log-sum-exp, with the stated tolerances: the
    serving shapes (f32 and bf16), the training shapes (bf16 at 256 px, f32
    at 512 px, with the lse that training saves), ``generate_all_classes``'
-   shape (BH 768, f32), d 16 and d 64 (both dtypes), T 4096, ragged T,
+   shape (BH 768, f32), the 512-px mask paths' shape (128, 4096, 32, f32,
+   with the lse), d 16 and d 64 (both dtypes), T 4096, ragged T,
    peaked logits (q × 8); times of the kernel
    (per call, ``ms``, and queued device time, ``queued_ms``, see
    :func:`cuda_queued_ms`), the plain version and
@@ -25,7 +26,8 @@ Phases (any failure ends the script with a non-zero exit and no result line):
 4. K1-bwd (``csrc/attention_bwd.cu``) against its plain version (the
    explicit backward, itself checked against torch autograd through the
    plain forward) at the same kinds of shapes (f32 first at the 512-px f32
-   training shape (96, 4096, 32)), through both routes: the lse from K1-fwd
+   training shape (96, 4096, 32), then the mask paths' (128, 4096, 32)),
+   through both routes: the lse from K1-fwd
    given (training's route) and recomputed; each run twice, equal bit for
    bit; times of both routes, the plain version and the backward of
    ``scaled_dot_product_attention`` (yardstick only) beside the bound.
@@ -97,7 +99,26 @@ Phases (any failure ends the script with a non-zero exit and no result line):
     ``eval_quality`` (one JSON line), SSIM/PSNR and the Inception features on
     the card against the CPU, ``infer_wsi``, ``infer_simple_flowmatching`` and
     ``infer_any2any`` (on phase 14's checkpoint).
-16. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5, each with ``ms`` and
+16. ``train-masked-conditioned``: ``experiment=he2ihc_masked_conditioned``
+    (the toggled mask-conditioned task: a 4 → 3 net with attention at level 3
+    and in the mid block, six K1 layers a forward at (128, 4096, 32)) through
+    the entry point at the reference's operating point (f32, 512 px, batch
+    8, one card) on a synthetic masked tree read by the experiment's own CSV
+    datamodule: 8 steps, validation, checkpoints, test; K1-fwd six times per
+    net forward, K1-bwd six times a step, K2–K5 never. Then
+    ``infer_conditional`` on its checkpoint with the mask and with
+    ``+zero_mask=true`` (the generated panels differ), the toggled task
+    behind the server (one request on the 1000×900 region), and the
+    conditioned task refused without a mask.
+17. ``train-masked``, ``train-roi``, ``train-pos-neg``: the masked,
+    ROI-Charbonnier and positive/negative studies (the plain flagship net,
+    one K1 a forward at (128, 4096, 32)) at f32, 512 px, batch 8, 4 steps,
+    one val and one test batch; the ROI path logs ``flow_loss`` and
+    ``roi_charbonnier``, the pos/neg path draws negatives.
+18. One f32 train step of the mask-conditioned net (batch 2, 256 px,
+    dropout 0) on the card with TF32 off against the CPU: loss and every
+    gradient, with K1-fwd and K1-bwd six times each.
+19. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5, each with ``ms`` and
     ``queued_ms``, and launches by path), the seconds of every phase, the
     card line, and ``{"ok": true, "device": ...}`` as the last line.
 
@@ -290,6 +311,9 @@ def phase_kernels(exp_per_s: float) -> dict:
         (256, 1024, 32, "float32", 1.0, False, "256-px serving shape, f32 (the config's dtype: the main path)"),
         (96, 4096, 32, "float32", 1.0, True,
          "512-px f32 training shape (batch 6, 16 heads), lse saved: train-f32's call"),
+        (128, 4096, 32, "float32", 1.0, True,
+         "512-px f32 mask training shape (batch 8, 16 heads), lse saved: the mask paths' call, six a forward "
+         "on the mask-conditioned net"),
         (256, 1024, 32, "bfloat16", 1.0, False, "256-px serving shape, bf16"),
         (512, 1024, 32, "bfloat16", 1.0, True, "256-px training shape (batch 32), bf16, lse saved: training's call"),
         (256, 1024, 16, "bfloat16", 1.0, False, "d 16, bf16"),
@@ -377,6 +401,8 @@ def phase_k1_bwd(exp_per_s: float) -> dict:
     cases = [  # (BH, T, d, dtype, q scale, what)
         (512, 1024, 32, "bfloat16", 1.0, "256-px training shape (batch 32, 16 heads), bf16: the main path"),
         (96, 4096, 32, "float32", 1.0, "512-px f32 training shape (batch 6, 16 heads): the train-f32 path"),
+        (128, 4096, 32, "float32", 1.0,
+         "512-px f32 mask training shape (batch 8, 16 heads): the mask paths, six a step on the mask-conditioned net"),
         (512, 1024, 32, "float32", 1.0, "256-px training shape, f32"),
         (64, 4096, 32, "bfloat16", 1.0, "512-px mid block at batch 4, bf16"),
         (256, 1024, 16, "bfloat16", 1.0, "d 16, bf16"),
@@ -906,7 +932,19 @@ ANY2ANY_OVERRIDES = [
     REMAT_OVERRIDE,
 ]
 ANY2ANY_TILES = 320  # val_split 0.2: 256 training tiles (8 steps of 32), 64 val tiles
-# each training path: its overrides and the folder of its synthetic data
+# the reference's mask studies (configs/experiment/he2ihc_masked_*.yaml,
+# he2ihc_pos_neg_amyloid.yaml: f32, 512 px, batch 8 a device) on one card
+# (their 4-device DDP cut to trainer.devices=1; W&B is not a logger of the
+# port, so the csv logger runs) and on synthetic tiles through the
+# experiments' own CSV datamodules; one epoch, so the best checkpoint is
+# taken every epoch (the experiments take it every 10 of 50)
+MASK_COMMON = ["trainer.accelerator=gpu", "trainer.devices=1", "trainer.min_epochs=1", "trainer.max_epochs=1",
+               "test=true", "data.csv_file_name=metadata.csv", "callbacks.model_checkpoint.every_n_epochs=1"]
+MASK_TILES = (64, 16, 16)  # train / val / test 512-px tiles of the masked tree: 8 steps of 8
+POS_NEG_TILES = dict(n_pos_train=24, n_neg=8, n_val=8, n_test=8)  # 32 draws: 4 steps of 8
+# the three plain-net mask studies at a cut depth: 4 steps, one val and one test batch
+SHORT = ["trainer.limit_train_batches=4", "trainer.limit_val_batches=1", "trainer.limit_test_batches=1"]
+# each training path: its overrides (``<data>`` stands for its data folder) and the folder of its synthetic data
 TRAIN_PATHS = {
     "train": (TRAIN_OVERRIDES, "data"),
     "train-fused": (TRAIN_OVERRIDES + [FUSED_OVERRIDE], "data"),
@@ -914,8 +952,15 @@ TRAIN_PATHS = {
     "train-remat": (TRAIN_F32_OVERRIDES + [REMAT_OVERRIDE], "data-512"),
     "train-fused-remat": (TRAIN_OVERRIDES + [FUSED_OVERRIDE, REMAT_OVERRIDE], "data"),
     "train-any2any": (ANY2ANY_OVERRIDES, "domains"),
+    "train-masked-conditioned": (["experiment=he2ihc_masked_conditioned"] + MASK_COMMON, "data-mask"),
+    "train-masked": (["experiment=he2ihc_masked_amyloid"] + MASK_COMMON + SHORT, "data-mask"),
+    "train-roi": (["experiment=he2ihc_masked_amyloid_ROI"] + MASK_COMMON + SHORT, "data-mask"),
+    "train-pos-neg": (["experiment=he2ihc_pos_neg_amyloid", "data.negative_data_dir=<data>"]
+                      + MASK_COMMON[:-1] + SHORT, "data-pos-neg"),
 }
-F32_PATHS = ("train-f32", "train-remat", "train-any2any")
+F32_PATHS = ("train-f32", "train-remat", "train-any2any", "train-masked-conditioned", "train-masked", "train-roi",
+             "train-pos-neg")
+PATH_STEPS = {"train-masked": 4, "train-roi": 4, "train-pos-neg": 4}  # 8 otherwise
 
 
 def phase_train(card: str, work: Path, name: str = "train") -> tuple[dict, dict]:
@@ -926,12 +971,19 @@ def phase_train(card: str, work: Path, name: str = "train") -> tuple[dict, dict]
     ``train-remat`` and ``train-fused-remat`` (``train-f32`` and
     ``train-fused`` with ``use_checkpoint=level``), ``train-any2any`` (the
     any2any experiment, f32, 256 px, batch 32, level remat; its domain
-    folders made by the caller). The synthetic data under ``work`` is made
-    once per folder and reused. Returns (summary, the objects ``train``
+    folders made by the caller), and the mask studies at f32, 512 px, batch
+    8 on trees the caller makes: ``train-masked-conditioned`` (the toggled
+    4→3 net, attention at level 3 and in the mid block: six K1 a forward),
+    ``train-masked``, ``train-roi`` and ``train-pos-neg`` (the plain net,
+    4 steps). The synthetic data under ``work`` of the first paths is made
+    once per folder and reused. K1-fwd must launch once per attention layer
+    of each net forward (and of each recompute under level remat), K1-bwd
+    once per attention layer a step. Returns (summary, the objects ``train``
     built)."""
     import torch
 
     from stain2stain_tpu_torch.config import compose
+    from stain2stain_tpu_torch.models.unet import AttentionBlock
     from stain2stain_tpu_torch.ops import conv
     from stain2stain_tpu_torch.ops.attention import fused_attention, fused_attention_backward
     from stain2stain_tpu_torch.train import train
@@ -941,7 +993,7 @@ def phase_train(card: str, work: Path, name: str = "train") -> tuple[dict, dict]
     fused = FUSED_OVERRIDE in TRAIN_PATHS[name][0]
     remat = REMAT_OVERRIDE in TRAIN_PATHS[name][0]
     path_overrides, data = TRAIN_PATHS[name]
-    overrides = path_overrides + [f"data.data_dir={work / data}"]
+    overrides = [o.replace("<data>", str(work / data)) for o in path_overrides] + [f"data.data_dir={work / data}"]
     cfg = compose(REPO / "configs", "train.yaml", overrides)
     cfg["runtime"] = {"output_dir": str(work / f"out-{name}"), "cwd": str(work)}
     cfg["extras"]["print_config"] = False
@@ -963,42 +1015,68 @@ def phase_train(card: str, work: Path, name: str = "train") -> tuple[dict, dict]
     # ---- end of the main path -----------------------------------------------
     clock = objects["callbacks"][-1]
     trainer = objects["trainer"]
+    task = objects["model"]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    peak_reserved_gib = torch.cuda.max_memory_reserved() / 2**30
     steps = len(clock.losses)
+    want_steps = PATH_STEPS.get(name, 8)
+    # attention layers a forward: the flagship's mid block, or level 3 and the mid block
+    attention = sum(isinstance(m, AttentionBlock) for m in task.net.modules())
     durations = [b - a for a, b in zip([clock.t0] + clock.ends[:-1], clock.ends)]
-    steady = durations[2:8]
+    steady = durations[2:8] if steps >= 8 else durations[1:]  # steps 3-8, or 2-4 on the 4-step paths
     step_ms = statistics.median(steady) * 1e3 if steady else float("nan")
     batch = int(cfg["data"]["batch_size"])
     ckpt = trainer.checkpoint_callback
     summary = dict(
         card=card, steps=steps, global_step=trainer.global_step, batch=batch,
         step_ms_median_3_8=step_ms, step_ms=[d * 1e3 for d in durations], tiles_per_s=batch / (step_ms / 1e3),
-        peak_mem_gib=peak_gib, wall_s=wall_s, losses=clock.losses, forwards=clock.forwards[0],
+        peak_mem_gib=peak_gib, peak_reserved_gib=peak_reserved_gib, wall_s=wall_s, losses=clock.losses, forwards=clock.forwards[0],
         k1_fwd_launches=fwd_launches, k1_bwd_launches=bwd_launches,
         k2_launches=k2, k3_launches=k3, k4_launches=k4, k5_launches=k5,
         val_loss=metrics.get("val/loss"), test_loss=metrics.get("test/loss"),
         best=Path(ckpt.best_model_path).name if ckpt and ckpt.best_model_path else None,
         best_path=ckpt.best_model_path if ckpt else None,
-        n_params=sum(p.numel() for p in objects["model"].net.parameters()),
-        dtype=str(objects["model"].net.dtype),
+        n_params=sum(p.numel() for p in task.net.parameters()),
+        dtype=str(task.net.dtype), attention_layers=attention, task=type(task).__name__,
+        datamodule=type(objects["datamodule"]).__name__,
+        metrics={k: v for k, v in metrics.items() if k.split("/")[0] in ("train", "val", "test")},
     )
+    if hasattr(task, "coins"):
+        summary["toggle_coins"] = dict(task.coins)
+    if name == "train-pos-neg":  # the negatives the weighted sampler drew for the steps that ran
+        dm = objects["datamodule"]
+        loader = dm.train_dataloader()
+        loader.set_epoch(0)
+        drawn = [int(i) for b in loader._batches()[:steps] for i in b]
+        n_pos = len(dm.data_train.datasets[0])
+        summary["negatives_drawn"] = sum(i >= n_pos for i in drawn)
+        summary["examples_drawn"] = len(drawn)
     log(f"{name} " + json.dumps(summary))
     finite = all(math.isfinite(x) for x in clock.losses + [summary["val_loss"] or math.nan, summary["test_loss"] or math.nan])
-    if steps != 8 or not finite:
-        raise AssertionError(f"training did not run 8 finite steps with finite val/test losses: {summary}")
+    if steps != want_steps or not finite:
+        raise AssertionError(f"training did not run {want_steps} finite steps with finite val/test losses: {summary}")
     if not summary["best"] or not (Path(ckpt.last_model_path) / "state.pt").is_file():
         raise AssertionError("training wrote no best or last checkpoint")
-    if bwd_launches == 0 or bwd_launches != steps:
-        raise AssertionError(f"K1-bwd launches {bwd_launches} != backward passes {steps}")
+    if bwd_launches == 0 or bwd_launches != attention * steps:
+        raise AssertionError(f"K1-bwd launches {bwd_launches} != {attention} attention layers x {steps} backward passes")
     if (name in F32_PATHS) != (summary["dtype"] == "torch.float32"):
         raise AssertionError(f"{name} computed in {summary['dtype']}")
-    # level remat recomputes every region in each backward pass: the mid
-    # block's K1-fwd and every fused ResBlock's K2 once more a step
+    # level remat recomputes every region in each backward pass: each
+    # attention layer's K1-fwd and every fused ResBlock's K2 once more a step
     recomputes = steps if remat else 0
-    if fwd_launches == 0 or fwd_launches != clock.forwards[0] + recomputes:
+    if fwd_launches == 0 or fwd_launches != attention * (clock.forwards[0] + recomputes):
         raise AssertionError(
-            f"K1-fwd launches {fwd_launches} != net forward calls {clock.forwards[0]} + recomputes {recomputes}"
+            f"K1-fwd launches {fwd_launches} != {attention} attention layers x (net forward calls "
+            f"{clock.forwards[0]} + recomputes {recomputes})"
         )
+    if name == "train-masked-conditioned" and (attention != 6 or summary["toggle_coins"]["drawn"] != steps):
+        raise AssertionError(f"the mask-conditioned net has {attention} attention layers (6 expected) or drew "
+                             f"{summary['toggle_coins']} toggle coins in {steps} steps")
+    if name == "train-roi" and not all(f"{p}/{k}" in metrics for p in ("train", "val", "test")
+                                       for k in ("flow_loss", "roi_charbonnier")):
+        raise AssertionError(f"the ROI path logged no flow_loss or roi_charbonnier: {sorted(metrics)}")
+    if name == "train-pos-neg" and not 0 < summary["negatives_drawn"] < summary["examples_drawn"]:
+        raise AssertionError(f"the pos/neg path drew {summary['negatives_drawn']} negatives")
     want_fwd = FLAGSHIP_FUSED_CONVS * (clock.forwards[0] + recomputes) if fused else 0
     want_bwd = FLAGSHIP_FUSED_CONVS * steps if fused else 0
     if k2 != want_fwd or (k3, k4, k5) != (want_bwd,) * 3 or (fused and k2 == 0):
@@ -1493,6 +1571,213 @@ def phase_eval(card: str, work: Path, train_summary: dict, any2any_summary: dict
     return out
 
 
+def make_mask_data(work: Path) -> None:
+    """The synthetic 512-px trees of the mask paths, made by the port's
+    generators: ``data-mask`` (binary masks, ``MASK_TILES``) and
+    ``data-pos-neg`` (``POS_NEG_TILES``: a positive CSV dataset and negative
+    folder pairs)."""
+    from stain2stain_tpu_torch.data.synthetic import generate_paired_dataset, generate_pos_neg_layout
+
+    n_train, n_val, n_test = MASK_TILES
+    generate_paired_dataset(work / "data-mask", n_train=n_train, n_val=n_val, n_test=n_test, size=512, seed=0,
+                            with_mask=True)
+    generate_pos_neg_layout(work / "data-pos-neg", size=512, seed=0, **POS_NEG_TILES)
+
+
+def phase_infer_conditional(card: str, work: Path, summary: dict, task) -> dict:
+    """``infer_conditional`` on ``train-masked-conditioned``'s best checkpoint,
+    with the real mask and with ``+zero_mask=true`` (euler, 2 steps, 4 test
+    tiles each): both write source / generated / target / mask panels, the
+    mask panels agree and the generated ones differ. Then the trained toggled
+    task (euler, 2 steps) behind ``TranslationServer`` over HTTP: one request
+    on phase 5's 1000×900 region, unconditioned (``generate(mask=None)``
+    runs on a zero mask), K1-fwd six times per velocity evaluation. A
+    ``MaskConditionedFlowMatchingModule`` on the same net is refused by
+    ``generate(mask=None)`` and by the server."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from stain2stain_tpu_torch import infer_conditional
+    from stain2stain_tpu_torch.ops.attention import fused_attention
+    from stain2stain_tpu_torch.ops.solvers import SolverConfig
+    from stain2stain_tpu_torch.server import TranslationServer, serve_forever
+    from stain2stain_tpu_torch.tasks import MaskConditionedFlowMatchingModule, ToggleMaskFlowMatchingModule
+    from stain2stain_tpu_torch.wsi import tile_starts
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # torch's defaults for inference
+    torch.backends.cudnn.allow_tf32 = True
+    out: dict = {"card": card}
+    argv = ["model=conditional_flow_matching_mask_toggeling", "data=paired_data_mask_he_amyloid",
+            f"data.data_dir={work / 'data-mask'}", "data.csv_file_name=metadata.csv", "data.batch_size=4",
+            f"ckpt_path={summary['best_path']}", "num_steps=2", "n_images=4", "model.solver.solver=euler"]
+    rows = {}
+    for label, extra in (("mask", []), ("zero_mask", ["+zero_mask=true"])):
+        t0 = time.perf_counter()
+        panels, _ = _cli(infer_conditional, argv + extra, work)
+        files = sorted(panels.iterdir())
+        rows[label] = [np.asarray(Image.open(f)).astype(np.int16) for f in files]
+        out[label] = dict(panels=len(files), panel_shape=list(rows[label][0].shape), s=time.perf_counter() - t0)
+    # source | generated | target | mask, 512 px each
+    gen_diff = float(np.mean([np.abs(a[:, 512:1024] - b[:, 512:1024]).mean() for a, b in zip(rows["mask"],
+                                                                                             rows["zero_mask"])]))
+    same_rest = all(np.array_equal(a[:, :512], b[:, :512]) and np.array_equal(a[:, 1024:], b[:, 1024:])
+                    for a, b in zip(rows["mask"], rows["zero_mask"]))
+    out["generated_mean_abs_diff"] = gen_diff
+    log("infer-conditional " + json.dumps(out))
+    if (out["mask"]["panels"] != 4 or out["zero_mask"]["panels"] != 4 or out["mask"]["panel_shape"] != [512, 2048, 3]
+            or not same_rest or gen_diff <= 0.0):
+        raise AssertionError(f"infer_conditional wrote the wrong panels, or the mask changed nothing: {out}")
+
+    net = task.net
+    attention = summary["attention_layers"]
+    toggle = ToggleMaskFlowMatchingModule(net=net, solver=SolverConfig("euler"))
+    evals = [0]
+    hook = net.register_forward_hook(lambda *_: evals.__setitem__(0, evals[0] + 1))
+    # ---- the main path: counts zeroed just before, read just after --------
+    fused_attention.launches = 0
+    t0 = time.perf_counter()
+    server = TranslationServer(toggle, num_steps=2, tile=256, overlap=32, batch=16)
+    warm_s = time.perf_counter() - t0
+    ready = threading.Event()
+    thread = threading.Thread(target=serve_forever, args=(server, "127.0.0.1", 0, ready), daemon=True)
+    thread.start()
+    img = _test_image(1000, 900, seed=1000 * 900)
+    try:
+        if not ready.wait(30):
+            raise RuntimeError("server did not bind")
+        req = urllib.request.Request(f"http://127.0.0.1:{server.bound_port}/translate", data=_png(img),
+                                     headers={"Content-Type": "image/png"})
+        t1 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            status, payload = resp.status, resp.read()
+        latency = time.perf_counter() - t1
+    finally:
+        if server.httpd is not None:
+            server.httpd.shutdown()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise RuntimeError("server thread did not stop")
+    launches, total_evals = fused_attention.launches, evals[0]
+    # ---- end of the main path ---------------------------------------------
+    hook.remove()
+    served = np.asarray(Image.open(io.BytesIO(payload)).convert("RGB"))
+    n_tiles = len(tile_starts(1000, 256, 224)) * len(tile_starts(900, 256, 224))
+    request = dict(card=card, status=status, latency_s=latency, tiles=n_tiles, tiles_per_s=n_tiles / latency,
+                   warmup_s=warm_s, velocity_evals=total_evals, k1_launches=launches,
+                   mean_abs_change=float(np.abs(served.astype(np.float32) - img).mean()))
+    log("serve-toggle-request " + json.dumps(request))
+    out["serve"] = request
+    if status != 200 or served.shape != img.shape or launches == 0 or launches != attention * total_evals:
+        raise AssertionError(f"the toggled model served wrongly: {request}")
+
+    conditioned = MaskConditionedFlowMatchingModule(net=net, solver=SolverConfig("euler"))
+    refused = []
+    for what, call in (("generate", lambda: conditioned.generate(torch.zeros(1, 256, 256, 3), num_steps=2)),
+                       ("server", lambda: TranslationServer(conditioned, num_steps=2, tile=256, overlap=32, batch=1))):
+        try:
+            call()
+        except ValueError as e:
+            refused.append(what if "requires the conditioning mask" in str(e) else f"{what}: {e}")
+    out["conditioned_refused"] = refused
+    log("conditioned-refused " + json.dumps(refused))
+    if refused != ["generate", "server"]:
+        raise AssertionError(f"the mask-conditioned task was not refused without a mask: {refused}")
+    return out
+
+
+def phase_mask_grad_parity() -> dict:
+    """One f32 train step of the mask-conditioned net
+    (``model=conditional_flow_matching_masked_condition``: 4 → 3 channels,
+    attention at level 3 and in the mid block) at batch 2, 256 px, dropout
+    0, on the card (TF32 off) against the same step through the plain path
+    on the CPU: loss and every parameter gradient; K1-fwd and K1-bwd six
+    times each (T 1024 at level 3 and in the mid block)."""
+    import numpy as np
+    import torch
+
+    from stain2stain_tpu_torch.config import compose, instantiate
+    from stain2stain_tpu_torch.ops.attention import fused_attention, fused_attention_backward
+    from stain2stain_tpu_torch.tasks import MaskConditionedFlowMatchingModule
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("mask-grad-parity: TF32 off for matmul and cuDNN")
+    cfg = compose(REPO / "configs", "train.yaml", ["model=conditional_flow_matching_masked_condition",
+                                                    "model.net.dropout=0.0"])
+    torch.manual_seed(0)
+    nets = {dev: instantiate(cfg.model.net, device=dev) for dev in ("cuda", "cpu")}
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():  # jitter every parameter: ADM zero-inits the output convs
+        for p in nets["cpu"].parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    nets["cuda"].load_state_dict(nets["cpu"].state_dict())
+    rng = np.random.default_rng(7)
+    batch = tuple(rng.integers(0, 256, size=(2, 256, 256, 3), dtype=np.uint8) for _ in range(2))
+    batch += ((rng.random((2, 256, 256)) > 0.7).astype(np.uint8),)
+    t = torch.tensor([0.3, 0.8])
+    out = {}
+    for dev, net in nets.items():
+        task = MaskConditionedFlowMatchingModule(net=net, device=dev)
+        prepared = task.prepare_batch(batch, train=False)
+        before = (fused_attention.launches, fused_attention_backward.launches)
+        t0 = time.perf_counter()
+        loss, _ = task.loss_and_metrics(prepared, train=True, t=t)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        launches = (fused_attention.launches - before[0], fused_attention_backward.launches - before[1])
+        out[dev] = (loss.item(), {n: p.grad.detach().cpu() for n, p in net.named_parameters()},
+                    time.perf_counter() - t0, launches)
+    (loss_gpu, g_gpu, gpu_s, launches), (loss_cpu, g_cpu, cpu_s, _) = out["cuda"], out["cpu"]
+    ref_max = max(g.abs().max().item() for g in g_cpu.values())
+    err = max((g_gpu[n] - g_cpu[n]).abs().max().item() for n in g_cpu)
+    worst = max(g_cpu, key=lambda n: (g_gpu[n] - g_cpu[n]).abs().max().item())
+    row = dict(loss_card=loss_gpu, loss_cpu=loss_cpu, max_abs_grad_err=err, worst_param=worst,
+               ref_max_abs_grad=ref_max, tol=GRAD_REL_TOL * ref_max, card_step_s=gpu_s, cpu_step_s=cpu_s,
+               k1_fwd_launches=launches[0], k1_bwd_launches=launches[1])
+    row["ok"] = (err <= row["tol"] and abs(loss_gpu - loss_cpu) <= 1e-4 * max(1.0, abs(loss_cpu))
+                 and launches == (6, 6) and all(torch.isfinite(g).all() for g in g_gpu.values()))
+    log("mask-grad-parity " + json.dumps(row))
+    if not row["ok"]:
+        raise AssertionError(f"mask-conditioned f32 gradients on the card disagree with the CPU plain path: {row}")
+    return row
+
+
+def mask_phases(card: str, work: Path, timed=lambda label, fn, *args: fn(*args)) -> dict:
+    """Phases 16–18 in a row, their data under ``work``: the mask trees,
+    ``train-masked-conditioned`` and ``phase_infer_conditional`` on its
+    task, the three short paths, ``phase_mask_grad_parity``. ``timed(label,
+    fn, *args)`` runs each phase (``main`` records its seconds)."""
+    import torch
+
+    # The mask-conditioned path peaks at 67.5 GiB allocated in a fresh process;
+    # after phases 3-15 the caching allocator's split blocks left 11 GiB reserved
+    # but unusable and its step ran out of memory. Segments that grow in place
+    # (set here, after the earlier phases, so those run under the default
+    # allocator as before) keep the reserve near what is allocated.
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    log("mask-phases " + json.dumps({"allocator": "expandable_segments:True",
+                                     "allocated_gib_before": torch.cuda.memory_allocated() / 2**30,
+                                     "reserved_gib_before": torch.cuda.memory_reserved() / 2**30}))
+    timed("mask-data", make_mask_data, work)
+    cond_summary, cond_objects = timed("train-masked-conditioned", phase_train, card, work, "train-masked-conditioned")
+    infer_cond = timed("infer-conditional", phase_infer_conditional, card, work, cond_summary, cond_objects["model"])
+    del cond_objects
+    gc.collect()
+    torch.cuda.empty_cache()
+    short = {}
+    for name in ("train-masked", "train-roi", "train-pos-neg"):
+        short[name], _ = timed(name, phase_train, card, work, name)
+        gc.collect()
+        torch.cuda.empty_cache()
+    grad = timed("mask-grad-parity", phase_mask_grad_parity)
+    return {"train-masked-conditioned": cond_summary, "infer-conditional": infer_cond, "short": short,
+            "mask-grad-parity": grad}
+
+
 def _device_us(event) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, name):
@@ -1740,7 +2025,7 @@ def main() -> int:
     del net
     torch.cuda.empty_cache()
 
-    # 7-15 write their synthetic data and checkpoints in a gitignored scratch dir
+    # 7-18 write their synthetic data and checkpoints in a gitignored scratch dir
     (REPO / "scratch").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_", dir=REPO / "scratch") as work:
         work = Path(work)
@@ -1804,10 +2089,16 @@ def main() -> int:
 
         # 15. evaluation and the inference CLIs
         timed("eval", phase_eval, card, work, train_summary, any2any_summary)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 16-18. the mask studies
+        masks = mask_phases(card, work, timed)
     torch.cuda.empty_cache()
+    cond_summary, infer_cond, mask_paths = masks["train-masked-conditioned"], masks["infer-conditional"], masks["short"]
     log("phase-seconds " + json.dumps(seconds))
 
-    # 16. result lines
+    # 19. result lines
     def row(name, source, replaces, case, launches, by_path, passed):
         return {
             "name": name,
@@ -1845,15 +2136,19 @@ def main() -> int:
             {"serve": summary["k1_launches"], "train": train_summary["k1_fwd_launches"],
              "train_f32": f32_summary["k1_fwd_launches"], "train_fused": fused_summary["k1_fwd_launches"],
              "train_remat": remat_summary["k1_fwd_launches"], "train_fused_remat": fused_remat_summary["k1_fwd_launches"],
-             "train_any2any": any2any_summary["k1_fwd_launches"], "serve_any2any": serve_any2any["k1_launches"]},
+             "train_any2any": any2any_summary["k1_fwd_launches"], "serve_any2any": serve_any2any["k1_launches"],
+             "train_masked_conditioned": cond_summary["k1_fwd_launches"], "serve_toggle": infer_cond["serve"]["k1_launches"],
+             **{n.replace("-", "_"): m["k1_fwd_launches"] for n, m in mask_paths.items()}},
             all(c["ok"] for c in k1["cases"]) and parity["ok"]),
         row("attention_bwd (K1-bwd)", "stain2stain_tpu_torch/csrc/attention_bwd.cu",
             "stain2stain_tpu/ops/pallas_attention.py:78", k1_bwd["cases"][0], train_summary["k1_bwd_launches"],
             {"train": train_summary["k1_bwd_launches"], "train_f32": f32_summary["k1_bwd_launches"],
              "train_fused": fused_summary["k1_bwd_launches"], "train_remat": remat_summary["k1_bwd_launches"],
              "train_fused_remat": fused_remat_summary["k1_bwd_launches"],
-             "train_any2any": any2any_summary["k1_bwd_launches"]},
-            all(c["ok"] for c in k1_bwd["cases"]) and grad["ok"]),
+             "train_any2any": any2any_summary["k1_bwd_launches"],
+             "train_masked_conditioned": cond_summary["k1_bwd_launches"],
+             **{n.replace("-", "_"): m["k1_bwd_launches"] for n, m in mask_paths.items()}},
+            all(c["ok"] for c in k1_bwd["cases"]) and grad["ok"] and masks["mask-grad-parity"]["ok"]),
     ] + [
         row(title, f"stain2stain_tpu_torch/csrc/{source}", replaces, convs["rows"][k][0], fused_summary[key],
             {"train_fused": fused_summary[key], "train_fused_remat": fused_remat_summary[key]},

@@ -8,6 +8,10 @@
   ``(O, I)`` (or Conv1d ``(O, I, 1)`` for the attention qkv/proj), GN
   ``scale/bias`` → ``weight/bias``, and the attention qkv rows put back into
   the legacy ``[h0·(q,k,v), h1·(q,k,v), …]`` order.
+- :func:`unet_4to3_state_dict_from_flax` does the same for the mask-conditioned
+  ``UNet4to3`` (the flax tree nests the UNet under ``unet``, the port's keys
+  under ``unet.``); :func:`frac_head_state_dict_from_flax` gives the
+  aux-fraction task's head (flax ``kernel`` (C, 1) → ``weight`` (1, C)).
 - :func:`load_reference_checkpoint` reads a ``.pt`` state dict or a reference
   Lightning ``.ckpt`` (``torch.load(weights_only=True)``) and strips the
   ``net.`` prefix, giving a state dict the port's UNet loads directly.
@@ -26,7 +30,12 @@ import torch
 
 from ..models.unet import attention_ds
 
-__all__ = ["unet_state_dict_from_flax", "load_reference_checkpoint"]
+__all__ = [
+    "unet_state_dict_from_flax",
+    "unet_4to3_state_dict_from_flax",
+    "frac_head_state_dict_from_flax",
+    "load_reference_checkpoint",
+]
 
 
 def _t(a: Any) -> torch.Tensor:
@@ -168,6 +177,31 @@ def unet_state_dict_from_flax(
     _put(sd, "out.0", _norm(norm))
     _put(sd, "out.2", _conv(params["conv_out"]))
     return sd
+
+
+def unet_4to3_state_dict_from_flax(
+    params: Mapping[str, Any],
+    *,
+    image_size: int,
+    num_channels: int,
+    num_res_blocks: int,
+    channel_mult: Sequence[int] = (1, 2, 2, 4),
+    attention_resolutions: Any = (16, 8),
+    num_heads: int = 4,
+    num_head_channels: int = -1,
+) -> dict[str, torch.Tensor]:
+    """The port's ``UNet4to3`` ``state_dict`` from the JAX package's ``UNet4to3`` params."""
+    inner = unet_state_dict_from_flax(
+        params["unet"], image_size=image_size, num_channels=num_channels, num_res_blocks=num_res_blocks,
+        channel_mult=channel_mult, attention_resolutions=attention_resolutions, num_heads=num_heads,
+        num_head_channels=num_head_channels,
+    )
+    return {f"unet.{k}": v for k, v in inner.items()}
+
+
+def frac_head_state_dict_from_flax(head: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The aux-fraction head's ``nn.Linear`` state dict from its flax ``{kernel, bias}``."""
+    return _linear(head)
 
 
 def load_reference_checkpoint(path: str | Path, net_prefix: str = "net.") -> dict[str, torch.Tensor]:

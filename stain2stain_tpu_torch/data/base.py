@@ -9,6 +9,10 @@
   is the thread count and ``prefetch_factor`` batches stay in flight.
 - Epoch ``e`` shuffles with the permutation seed ``seed + e``
   (:meth:`DataLoader.set_epoch`), so a resumed run sees the same order.
+  With ``sampler_weights`` it draws ``len(dataset)`` indices with
+  replacement, by weight, from the same seed (torch's
+  ``WeightedRandomSampler``): numpy's draws, so the JAX package's loader
+  yields the same batches.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -29,6 +33,26 @@ class Dataset:
 
     def __getitem__(self, idx: int) -> tuple:  # pragma: no cover - interface
         raise NotImplementedError
+
+
+class ConcatDataset(Dataset):
+    """The datasets one after another (torch ``ConcatDataset``; JAX ``data/base.py:38-57``)."""
+
+    def __init__(self, datasets: Sequence[Dataset]):
+        self.datasets = list(datasets)
+        self._offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    def set_epoch(self, epoch: int) -> None:
+        for d in self.datasets:
+            if hasattr(d, "set_epoch"):
+                d.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return int(self._offsets[-1])
+
+    def __getitem__(self, idx: int) -> tuple:
+        ds_idx = int(np.searchsorted(self._offsets, idx, side="right") - 1)
+        return self.datasets[ds_idx][idx - int(self._offsets[ds_idx])]
 
 
 def default_collate(samples: list[tuple]) -> tuple:
@@ -60,6 +84,7 @@ class DataLoader:
         prefetch_factor: int = 2,
         seed: int = 0,
         collate_fn: Callable = default_collate,
+        sampler_weights: Optional[np.ndarray] = None,
     ):
         if drop_last and 0 < len(dataset) < batch_size:
             raise ValueError(
@@ -74,6 +99,7 @@ class DataLoader:
         self.prefetch_factor = max(1, prefetch_factor)
         self.seed = seed
         self.collate_fn = collate_fn
+        self.sampler_weights = sampler_weights
         self._epoch = 0
         self._pool: Optional[ThreadPoolExecutor] = None
         self._pool_lock = threading.Lock()
@@ -91,8 +117,12 @@ class DataLoader:
     def _batches(self) -> list[np.ndarray]:
         """Index arrays of this epoch's batches (shared with the device cache)."""
         n = len(self.dataset)
-        if self.shuffle:
-            indices = np.random.default_rng(self.seed + self._epoch).permutation(n)
+        rng = np.random.default_rng(self.seed + self._epoch)
+        if self.sampler_weights is not None:
+            p = np.asarray(self.sampler_weights, dtype=np.float64)
+            indices = rng.choice(n, size=n, replace=True, p=p / p.sum())
+        elif self.shuffle:
+            indices = rng.permutation(n)
         else:
             indices = np.arange(n)
         return [indices[b * self.batch_size : (b + 1) * self.batch_size] for b in range(len(self))]
@@ -175,4 +205,4 @@ class DataModule:
         return None
 
 
-__all__ = ["Dataset", "DataLoader", "DataModule", "default_collate"]
+__all__ = ["Dataset", "ConcatDataset", "DataLoader", "DataModule", "default_collate"]

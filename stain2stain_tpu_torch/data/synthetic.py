@@ -64,10 +64,19 @@ def generate_paired_dataset(
     n_test: int = 4,
     size: int = 64,
     seed: int = 0,
+    with_mask: bool = False,
+    num_mask_classes: int = 0,
     csv_name: str = "metadata.csv",
     deterministic: bool = False,
 ) -> Path:
-    """Write ``root/{train,val,test}/*.png`` and the metadata CSV; returns root."""
+    """Write ``root/{train,val,test}/*.png`` and the metadata CSV; returns root.
+
+    ``with_mask`` adds ``<stem>_mask.png`` under both mask columns
+    (``amyloid_filepath``, ``graywhite_filepath``): the blob mask × 255, or
+    with ``num_mask_classes > 1`` the blob mask × one class id in
+    [1, num_mask_classes) drawn per tile from the same generator. The files
+    are the JAX package's byte for byte (the CSV as pandas writes it).
+    """
     import cv2
 
     root = Path(root)
@@ -77,15 +86,25 @@ def generate_paired_dataset(
         split_dir = root / split
         split_dir.mkdir(parents=True, exist_ok=True)
         for i in range(count):
-            he, ihc, _ = make_tile_pair(rng, size, deterministic=deterministic)
+            he, ihc, mask = make_tile_pair(rng, size, deterministic=deterministic)
             stem = f"{split}_{i:04d}"
             he_name, ihc_name = f"{stem}_he.png", f"{stem}_ihc.png"
             cv2.imwrite(str(split_dir / he_name), cv2.cvtColor(he, cv2.COLOR_RGB2BGR))
             cv2.imwrite(str(split_dir / ihc_name), cv2.cvtColor(ihc, cv2.COLOR_RGB2BGR))
-            rows.append({"image_id": stem, "he_filepath": he_name, "ihc_filepath": ihc_name, "split": split})
+            row = {"image_id": stem, "he_filepath": he_name, "ihc_filepath": ihc_name, "split": split}
+            if with_mask:
+                mask_name = f"{stem}_mask.png"
+                if num_mask_classes > 1:
+                    class_mask = (mask * rng.integers(1, num_mask_classes, size=1)[0]).astype(np.uint8)
+                    cv2.imwrite(str(split_dir / mask_name), class_mask)
+                else:
+                    cv2.imwrite(str(split_dir / mask_name), mask * 255)
+                row["amyloid_filepath"] = mask_name
+                row["graywhite_filepath"] = mask_name
+            rows.append(row)
     tmp = root / f"{csv_name}.tmp"
     with open(tmp, "w", newline="") as f:
-        writer = csv.DictWriter(f, fieldnames=["image_id", "he_filepath", "ihc_filepath", "split"])
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]) if rows else [], lineterminator="\n")
         writer.writeheader()
         writer.writerows(rows)
     tmp.replace(root / csv_name)  # the CSV appears last, once every tile is written
@@ -118,4 +137,30 @@ def generate_domain_folders(
     return root
 
 
-__all__ = ["generate_paired_dataset", "generate_domain_folders", "make_tile_pair"]
+def generate_pos_neg_layout(
+    root: str | Path,
+    n_pos_train: int = 8,
+    n_neg: int = 4,
+    n_val: int = 4,
+    n_test: int = 4,
+    size: int = 64,
+    seed: int = 0,
+) -> Path:
+    """The positive/negative layout: a positive CSV dataset
+    (:func:`generate_paired_dataset`) and the ``train_he`` / ``train_ihc``
+    folders of negative pairs under shared file names, drawn from ``seed + 1``."""
+    import cv2
+
+    root = Path(root)
+    generate_paired_dataset(root, n_train=n_pos_train, n_val=n_val, n_test=n_test, size=size, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    for i in range(n_neg):
+        he, ihc, _ = make_tile_pair(rng, size)
+        fname = f"neg_{i:04d}.png"
+        for sub, img in (("train_he", he), ("train_ihc", ihc)):
+            (root / sub).mkdir(parents=True, exist_ok=True)
+            cv2.imwrite(str(root / sub / fname), cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+    return root
+
+
+__all__ = ["generate_paired_dataset", "generate_domain_folders", "generate_pos_neg_layout", "make_tile_pair"]

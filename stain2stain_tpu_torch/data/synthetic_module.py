@@ -1,8 +1,9 @@
 """Hermetic synthetic datamodule (counterpart of ``stain2stain_tpu/data/synthetic_module.py``).
 
 On ``prepare_data`` it writes a deterministic synthetic paired-tile tree
-(:mod:`.synthetic`) and then behaves like :class:`PairedDataModule`. The
-masked variants (``with_mask``) come with the masked data modules.
+(:mod:`.synthetic`) and then behaves like :class:`PairedDataModule`, or with
+``with_mask`` (a binary mask) like :class:`PairedHEIHCDataModule`. Multiclass
+masks (``num_mask_classes > 1``) come with the multitask tasks.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from pathlib import Path
 from typing import Optional
 
 from .base import DataModule
+from .paired_data_mask import PairedHEIHCDataModule
 from .paired_data_module import PairedDataModule
 from .synthetic import generate_paired_dataset
 
@@ -34,10 +36,12 @@ class SyntheticPairedDataModule(DataModule):
         deterministic: bool = False,
         cache: Optional[str] = None,
     ):
-        if with_mask:
-            raise NotImplementedError("synthetic masks (with_mask=True) are not ported yet")
+        if with_mask and num_mask_classes > 1:
+            raise NotImplementedError(
+                "synthetic multiclass masks (num_mask_classes > 1) come with the multitask tasks, not ported yet"
+            )
         # the JAX package's directory naming, so both packages share a tree
-        variant = f"s{tile_size}_m0_n{n_train}-{n_val}-{n_test}_seed{seed}"
+        variant = f"s{tile_size}_m{num_mask_classes if with_mask else 0}_n{n_train}-{n_val}-{n_test}_seed{seed}"
         if deterministic:
             variant += "_det"
         self.data_dir = Path(data_dir) / variant
@@ -45,7 +49,9 @@ class SyntheticPairedDataModule(DataModule):
         self.tile_size = tile_size
         self.seed = seed
         self.deterministic = deterministic
-        self._inner = PairedDataModule(
+        self.with_mask = with_mask
+        self.num_mask_classes = num_mask_classes
+        common = dict(
             data_dir=str(self.data_dir),
             csv_file_name="metadata.csv",
             source_column="he_filepath",
@@ -55,10 +61,20 @@ class SyntheticPairedDataModule(DataModule):
             image_size=image_size,
             seed=seed,
             cache=cache,
-            use_augmentation=use_augmentation,
-            load_size=tile_size if use_augmentation else None,
-            direction="S2T",
         )
+        if with_mask:
+            self._inner = PairedHEIHCDataModule(mask_column="amyloid_filepath", **common)
+        else:
+            self._inner = PairedDataModule(
+                use_augmentation=use_augmentation,
+                load_size=tile_size if use_augmentation else None,
+                direction="S2T",
+                **common,
+            )
+
+    @property
+    def field_kinds(self) -> tuple:
+        return getattr(self._inner, "field_kinds", ("image", "image"))
 
     @property
     def train_augment(self):
@@ -73,6 +89,8 @@ class SyntheticPairedDataModule(DataModule):
                 n_test=self.n_test,
                 size=self.tile_size,
                 seed=self.seed,
+                with_mask=self.with_mask,
+                num_mask_classes=self.num_mask_classes,
                 deterministic=self.deterministic,
             )
 

@@ -19,18 +19,19 @@ import torch
 from .compat import load_reference_checkpoint
 from .config import Config, instantiate
 from .ops.image import denormalize
+from .training.state import load_heads
 from .utils.pylogger import RankedLogger
 
 log = RankedLogger(__name__, rank_zero_only=True)
 
 
-def load_state(ckpt_path: str) -> tuple[dict, dict]:
-    """(net state dict, meta) of a checkpoint: a directory of the port's
-    trainer (``state.pt`` + ``meta.json``), or a ``.pt`` state dict or a
-    reference Lightning ``.ckpt`` file (meta ``{}``)."""
+def _read_checkpoint(ckpt_path: str) -> tuple[dict, dict, dict]:
+    """(net state dict, head state dicts, meta) of a checkpoint: a directory
+    of the port's trainer (``state.pt`` + ``meta.json``), or a ``.pt`` state
+    dict or a reference Lightning ``.ckpt`` file (no heads, meta ``{}``)."""
     path = Path(ckpt_path)
     if not path.is_dir():
-        return load_reference_checkpoint(path), {}
+        return load_reference_checkpoint(path), {}, {}
     if not (path / "state.pt").is_file():
         raise FileNotFoundError(f"No checkpoint at {path}")
     saved = torch.load(path / "state.pt", map_location="cpu", weights_only=True)
@@ -38,15 +39,25 @@ def load_state(ckpt_path: str) -> tuple[dict, dict]:
     meta = json.loads(meta_file.read_text()) if meta_file.exists() else {}
     if meta:
         log.info(f"Restored checkpoint (epoch {meta.get('epoch')}, step {meta.get('global_step')})")
-    return saved["model"], meta
+    return saved["model"], saved.get("heads", {}), meta
+
+
+def load_state(ckpt_path: str) -> tuple[dict, dict]:
+    """(net state dict, meta) of a checkpoint directory, ``.pt`` or ``.ckpt`` file."""
+    model, _, meta = _read_checkpoint(ckpt_path)
+    return model, meta
 
 
 def load_task(cfg: Config):
     """The task of ``cfg.model`` with its net on ``cfg.device`` (the CUDA card
-    unless ``device=cpu``) and the weights of ``cfg.ckpt_path``."""
+    unless ``device=cpu``) and the weights of ``cfg.ckpt_path``, its heads'
+    too (the aux-fraction head)."""
+    model, heads, _ = _read_checkpoint(cfg["ckpt_path"])
     net = instantiate(cfg["model"]["net"], device=cfg.get("device"))
-    net.load_state_dict(load_state(cfg["ckpt_path"])[0], strict=True)
-    return instantiate(cfg["model"], net=net)
+    net.load_state_dict(model, strict=True)
+    task = instantiate(cfg["model"], net=net)
+    load_heads(task.heads, {"heads": heads}, cfg["ckpt_path"])
+    return task
 
 
 def save_panel(path: Path, panels: dict[str, np.ndarray], index: int) -> None:

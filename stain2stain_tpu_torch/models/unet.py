@@ -440,11 +440,8 @@ class UNetModel(nn.Module):
                 self.output_blocks.append(nn.ModuleList(mods))
         assert not skip_chs, "skip bookkeeping mismatch"
 
-        self.out = nn.Sequential(
-            _norm(ch),
-            nn.SiLU(),
-            nn.Conv2d(ch, out_channels if out_channels is not None else in_ch, 3, padding=1),
-        )
+        self.out_channels = out_channels if out_channels is not None else in_ch
+        self.out = nn.Sequential(_norm(ch), nn.SiLU(), nn.Conv2d(ch, self.out_channels, 3, padding=1))
         nn.init.zeros_(self.out[2].weight)
         nn.init.zeros_(self.out[2].bias)
         # every ResBlock's slot in the seeds drawn ahead: forward order is

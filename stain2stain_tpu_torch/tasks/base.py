@@ -4,10 +4,12 @@ A task bundles the velocity net with its path sampler, loss recipe, ODE
 solver and optimizer configuration:
 
 - ``prepare_batch(batch, generator, train, augment)`` — host or device
-  fields → device tensors: uint8 RGB → float32 [-1, 1], and in training the
-  *shared* random crop and flips over the whole group (``base.py:60-107``);
+  fields → device tensors: uint8 RGB → float32 [-1, 1], masks → float32
+  (B, H, W, 1), and in training the *shared* random crop and flips over the
+  images and masks (``base.py:60-107``);
 - ``loss_and_metrics(batch, generator, train)`` → (loss, metrics);
-- ``configure_optimizers()`` → (optimizer over the net's parameters, scheduler);
+- ``configure_optimizers()`` → (optimizer over ``trainable_parameters()``:
+  the net's, then those of the task's own ``heads``, scheduler);
 - ``render_panels(batch, generator, num_steps)`` — source / generated /
   target previews in [0, 1] for the image logger;
 - ``generate`` (subclasses) integrates the learned velocity ODE.
@@ -34,10 +36,15 @@ class FlowMatchingTask:
     """Shared machinery for CFM variants.
 
     ``batch_fields`` names each field of a loader batch: ``"image"`` (uint8
-    RGB (B, H, W, 3) → [-1, 1]), ``"label"`` (int class ids → int64 on the
-    task's device) or ``"meta"`` (host-only, e.g. filenames).
+    RGB (B, H, W, 3) → [-1, 1]), ``"mask"`` (uint8 or float (B, H, W) or
+    (B, H, W, 1) → float32 (B, H, W, 1)), ``"label"`` (int class ids → int64
+    on the task's device) or ``"meta"`` (host-only, e.g. filenames).
     ``device``: where the net runs; ``None`` keeps the device the net's
     parameters already lie on (the UNet resolves its own, CUDA by default).
+
+    ``heads``: modules with trained parameters that the task holds beside
+    the net (the aux-fraction head); the optimizer and the checkpoint take
+    them with the net.
     """
 
     batch_fields: Sequence[str] = ("image", "image")
@@ -67,11 +74,21 @@ class FlowMatchingTask:
         if solver is not None and callable(solver) and not isinstance(solver, SolverConfig):
             solver = solver()  # _partial_ config parity
         self.solver = solver or SolverConfig(solver="euler")
+        self.heads: dict[str, nn.Module] = {}
 
     def to(self, device: DeviceLike) -> "FlowMatchingTask":
         self.device = resolve_device(device)
         self.net.to(self.device)
+        for head in self.heads.values():
+            head.to(self.device)
         return self
+
+    def trainable_parameters(self) -> list[nn.Parameter]:
+        """Every trained parameter: the net's, then each head's in name order."""
+        params = list(self.net.parameters())
+        for name in sorted(self.heads):
+            params.extend(self.heads[name].parameters())
+        return params
 
     # ------------------------------------------------------------ batch prep
     def device_fields(self, batch: tuple) -> tuple:
@@ -86,26 +103,33 @@ class FlowMatchingTask:
         augment: Optional[dict] = None,
     ) -> tuple:
         """Device tensors of a batch's fields; with ``train`` and ``augment``
-        one crop and flip shared across the image fields (applied to the uint8
-        tiles, before normalization: the same pixels either way)."""
+        one crop and flip shared across the image and mask fields (applied
+        before the conversion: the same pixels either way)."""
         kinds = [k for k in self.batch_fields if k != "meta"][: len(batch)]
-        if any(kind not in ("image", "label") for kind in kinds):
-            raise NotImplementedError(f"batch field kinds {kinds} are not ported (only 'image' and 'label')")
+        if "class_mask" in kinds:
+            raise NotImplementedError("'class_mask' batch fields come with the multitask tasks, not ported yet")
+        unknown = [kind for kind in kinds if kind not in ("image", "mask", "label")]
+        if unknown:
+            raise NotImplementedError(f"batch field kinds {unknown} are not ported")
         arrays = [torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x).to(self.device) for x in batch]
-        images = [i for i, kind in enumerate(kinds) if kind == "image"]
-        if train and augment:
+        for i, kind in enumerate(kinds):
+            if kind == "mask" and arrays[i].ndim == 3:
+                arrays[i] = arrays[i][..., None]
+        spatial = [i for i, kind in enumerate(kinds) if kind in ("image", "mask")]
+        if train and augment and spatial:
             cropped = paired_random_crop_flip(
-                [arrays[i] for i in images],
+                [arrays[i] for i in spatial],
                 crop_size=augment["crop_size"],
                 hflip=augment.get("hflip", True),
                 vflip=augment.get("vflip", True),
                 generator=generator,
             )
-            for i, x in zip(images, cropped):
+            for i, x in zip(spatial, cropped):
                 arrays[i] = x
         return tuple(
             x.to(torch.int64) if kind == "label"
-            else normalize_uint8(x) if x.dtype == torch.uint8 else x.to(torch.float32)
+            else x.to(torch.float32) if kind == "mask" or x.dtype != torch.uint8
+            else normalize_uint8(x)
             for x, kind in zip(arrays, kinds)
         )
 
@@ -123,10 +147,10 @@ class FlowMatchingTask:
 
     # ------------------------------------------------------------- optimizers
     def configure_optimizers(self):
-        """Returns (optimizer over the net's parameters, host scheduler or None)."""
+        """Returns (optimizer over :meth:`trainable_parameters`, host scheduler or None)."""
         if self.optimizer is None:
             raise ValueError("the task has no optimizer (set model.optimizer in the config)")
-        opt = self.optimizer(self.net.parameters()) if callable(self.optimizer) else self.optimizer
+        opt = self.optimizer(self.trainable_parameters()) if callable(self.optimizer) else self.optimizer
         sched = self.scheduler() if callable(self.scheduler) else self.scheduler
         return opt, sched
 

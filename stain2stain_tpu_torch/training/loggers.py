@@ -107,6 +107,8 @@ class FileLogger(Logger):
         for name, imgs in images.items():
             for i, img in enumerate(np.asarray(imgs)[:8]):
                 pixels = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+                if pixels.ndim == 3 and pixels.shape[-1] == 1:
+                    pixels = pixels[..., 0]  # a mask panel: PIL takes (H, W) gray, not (H, W, 1)
                 Image.fromarray(pixels).save(out / f"{tag}_{name}_{i}.png")
 
     def finalize(self, status: str = "success") -> None:

@@ -1,7 +1,9 @@
 """Train state and checkpoint I/O (counterpart of ``stain2stain_tpu/training/state.py``).
 
 A checkpoint is a directory: ``<path>/state.pt`` (``torch.save`` of the step
-counter, the model's and the optimizer's state dicts) and ``<path>/meta.json``
+counter, the model's and the optimizer's state dicts, and ``heads``, the
+state dicts of the task's own trained modules, only when it has any, so a
+file written before heads existed loads unchanged) and ``<path>/meta.json``
 with the JAX package's keys (epoch, global_step, callback_metrics, scheduler,
 base_lr, callbacks, rng), so resume is exact. Loading uses
 ``weights_only=True``: a file holding arbitrary pickled objects is refused.
@@ -11,7 +13,7 @@ from __future__ import annotations
 
 import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any
 
@@ -24,9 +26,13 @@ class TrainState:
     step: int
     net: nn.Module
     optimizer: torch.optim.Optimizer
+    heads: dict = field(default_factory=dict)  # name -> nn.Module held by the task
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "model": self.net.state_dict(), "optimizer": self.optimizer.state_dict()}
+        state = {"step": self.step, "model": self.net.state_dict(), "optimizer": self.optimizer.state_dict()}
+        if self.heads:
+            state["heads"] = {name: head.state_dict() for name, head in self.heads.items()}
+        return state
 
 
 class CheckpointIO:
@@ -49,11 +55,22 @@ class CheckpointIO:
         device = next(state.net.parameters()).device
         saved = torch.load(path / "state.pt", map_location=device, weights_only=True)
         state.net.load_state_dict(saved["model"])
+        load_heads(state.heads, saved, path)
         if not weights_only:
             state.optimizer.load_state_dict(saved["optimizer"])
             state.step = int(saved["step"])
         meta_file = path / "meta.json"
         return json.loads(meta_file.read_text()) if meta_file.exists() else {}
+
+
+def load_heads(heads: dict, saved: dict, path: Any) -> None:
+    """Load ``saved["heads"]`` into ``heads`` (name → module), strictly: a
+    head the file lacks, or one the task lacks, raises."""
+    stored = saved.get("heads", {})
+    if set(stored) != set(heads):
+        raise KeyError(f"{path}: the checkpoint holds heads {sorted(stored)}, the task {sorted(heads)}")
+    for name, head in heads.items():
+        head.load_state_dict(stored[name])
 
 
 def _jsonable(obj: Any) -> Any:
@@ -66,4 +83,4 @@ def _jsonable(obj: Any) -> Any:
     return obj
 
 
-__all__ = ["TrainState", "CheckpointIO"]
+__all__ = ["TrainState", "CheckpointIO", "load_heads"]

@@ -220,7 +220,7 @@ class Trainer:
 
     def _init_state(self, task) -> None:
         optimizer, self._scheduler = task.configure_optimizers()
-        self.state = TrainState(step=0, net=task.net, optimizer=optimizer)
+        self.state = TrainState(step=0, net=task.net, optimizer=optimizer, heads=dict(task.heads))
         if self._base_lr is None:
             self._base_lr = get_learning_rate(optimizer)
 
@@ -244,7 +244,7 @@ class Trainer:
                 for k, v in m.items():
                     metrics[k] = metrics.get(k, 0.0) + v / accum
         if self.gradient_clip_val:
-            grads = [p.grad for p in state.net.parameters() if p.grad is not None]
+            grads = [p.grad for p in task.trainable_parameters() if p.grad is not None]
             gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32).square()) for g in grads))
             scale = torch.clamp(self.gradient_clip_val / (gnorm + 1e-6), max=1.0)
             for g in grads:
