@@ -104,8 +104,9 @@ Phases (any failure ends the script with a non-zero exit and no result line):
     and in the mid block, six K1 layers a forward at (128, 4096, 32)) through
     the entry point at the reference's operating point (f32, 512 px, batch
     8, one card) on a synthetic masked tree read by the experiment's own CSV
-    datamodule: 8 steps, validation, checkpoints, test; K1-fwd six times per
-    net forward, K1-bwd six times a step, K2–K5 never. Then
+    datamodule (its first 8 batches of 128 tiles): 8 steps, validation,
+    checkpoints, test; K1-fwd six times per net forward, K1-bwd six times a
+    step, K2–K5 never. Then
     ``infer_conditional`` on its checkpoint with the mask and with
     ``+zero_mask=true`` (the generated panels differ), the toggled task
     behind the server (one request on the 1000×900 region), and the
@@ -118,12 +119,37 @@ Phases (any failure ends the script with a non-zero exit and no result line):
 18. One f32 train step of the mask-conditioned net (batch 2, 256 px,
     dropout 0) on the card with TF32 off against the CPU: loss and every
     gradient, with K1-fwd and K1-bwd six times each.
-19. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5, each with ``ms`` and
-    ``queued_ms``, and launches by path), the seconds of every phase, the
-    card line, and ``{"ok": true, "device": ...}`` as the last line.
+19. ``train-multitask``: ``experiment=multitask_he2ihc_amyloid`` (the
+    shared encoder, features 64…1024, with the flow and binary segmentation
+    decoders, 512…64; 44,325,188 parameters) through the entry point at f32,
+    512 px, batch 16 (the reference's 32 a device cut for one card: the
+    encoder runs on 2B images) under the reference's BatchNorm, on phase
+    16's masked tree: 8 steps, validation (``dice_coef``, ``iou``),
+    checkpoints with every BatchNorm's running statistics (updated once a
+    step), test from the best one. Then ``infer_multitask_multiclassloss``
+    on its checkpoint (the predicted mask panel binary) and the task behind
+    the server (one request on the 1000×900 region).
+20. ``train-multitask-multiclass``:
+    ``experiment=gray_matter/multitask_he2ihc_gray_matter`` (2 classes) at
+    its operating point (f32, 256 px, batch 32) under BatchNorm on a
+    synthetic tree with 2-class masks read by the experiment's own
+    ``PairedMulticlassDataModule``: 8 steps, validation (per-class Dice and
+    IoU, averaged), test; then ``infer_multitask_multiclassloss`` (ids in
+    {0, 1}).
+21. One f32 train step of the full-width multitask net (batch 2, 256 px) on
+    the card (TF32 off, deterministic cuDNN) against the CPU, under GroupNorm
+    (the configs' default) and BatchNorm: loss, every gradient, the running
+    statistics. No phase of 19–21 launches K1–K5 (the multitask nets have no
+    attention; their convs are cuDNN's, as the JAX package's are XLA's): each
+    records 0 launches of every kernel.
+22. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5, each with ``ms`` and
+    ``queued_ms``, and launches by path, the multitask paths' included), the
+    seconds of every phase, the card line, and ``{"ok": true, "device": ...}``
+    as the last line.
 
 With ``--profile`` it also profiles a tile batch and a request, and a train
-step of each path (``phase_profile_train``).
+step of each path (``phase_profile_train``), the binary multitask study's
+under BatchNorm and under GroupNorm among them.
 
 It exits non-zero, printing no result, when no CUDA card is present or when
 the port's package is not beside it.
@@ -177,6 +203,13 @@ GRAD_REL_TOL = 1e-3
 # dW, dbias): the same bf16 products summed in f32 in another order, over up
 # to 2.1 M pixels.
 CONV_REL_TOL = {"bf16": 1e-2, "f32": 1e-3}
+# the multitask net's BatchNorm running statistics after one step, card vs
+# CPU, max abs: 1 % of a batch mean or variance summed in another order
+BN_STATS_TOL = 1e-5
+# under BatchNorm, the card's f32 multitask gradients against the CPU's
+# float64 step: at most this many times as far as the CPU's own f32 step
+# (two f32 computations, each within that distance)
+F32_FLOOR_FACTOR = 2.0
 # the fused flagship's bf16 gradients, card vs CPU, as a multiple of the
 # largest |gradient|: bf16 activations round at the same points on both sides,
 # but the sums run in another order and a rounding flip propagates
@@ -865,7 +898,8 @@ def phase_unet_parity(net) -> dict:
 def step_clock():
     """A training callback (instantiated from the config by ``_target_``) that
     records the device-synchronized end time and loss of every optimizer step,
-    and counts the net's forward calls through a hook installed at fit start."""
+    and counts the net's forward calls (a multitask net's encoder passes)
+    through a hook installed at fit start."""
     import torch
 
     from stain2stain_tpu_torch.training import Callback
@@ -875,7 +909,8 @@ def step_clock():
             self.ends, self.losses, self.forwards, self.t0 = [], [], [0], None
 
         def on_fit_start(self, trainer, task):
-            task.net.register_forward_hook(lambda *_: self.forwards.__setitem__(0, self.forwards[0] + 1))
+            net = getattr(task.net, "encoder", task.net)  # a multitask net: its encoder's passes
+            net.register_forward_hook(lambda *_: self.forwards.__setitem__(0, self.forwards[0] + 1))
 
         def on_train_epoch_start(self, trainer, task):
             torch.cuda.synchronize()
@@ -940,10 +975,20 @@ ANY2ANY_TILES = 320  # val_split 0.2: 256 training tiles (8 steps of 32), 64 val
 # taken every epoch (the experiments take it every 10 of 50)
 MASK_COMMON = ["trainer.accelerator=gpu", "trainer.devices=1", "trainer.min_epochs=1", "trainer.max_epochs=1",
                "test=true", "data.csv_file_name=metadata.csv", "callbacks.model_checkpoint.every_n_epochs=1"]
-MASK_TILES = (64, 16, 16)  # train / val / test 512-px tiles of the masked tree: 8 steps of 8
+# train / val / test 512-px tiles of the masked tree: 8 steps of 8 for the
+# mask-conditioned path (its first 8 batches), 8 steps of 16 for train-multitask
+MASK_TILES = (128, 16, 16)
 POS_NEG_TILES = dict(n_pos_train=24, n_neg=8, n_val=8, n_test=8)  # 32 draws: 4 steps of 8
 # the three plain-net mask studies at a cut depth: 4 steps, one val and one test batch
 SHORT = ["trainer.limit_train_batches=4", "trainer.limit_val_batches=1", "trainer.limit_test_batches=1"]
+# the reference's multitask studies on one card (configs/experiment/multitask_he2ihc_amyloid.yaml: f32, 512 px,
+# batch 32 a device; gray_matter/multitask_he2ihc_gray_matter.yaml: f32, 256 px, batch 32, 2 classes), with the
+# mask studies' cuts (4-device DDP to trainer.devices=1, W&B to csv, one epoch with its best checkpoint), under
+# the reference's BatchNorm (the configs' default is GroupNorm, which phase 21 drives); the binary study's batch
+# 32 cut to 16 for one card (its encoder runs on 2B images)
+BATCH_NORM = ["+model.encoder.norm=batch", "+model.flow_decoder.norm=batch", "+model.seg_decoder.norm=batch"]
+MULTITASK_BATCH = 16
+MULTICLASS_TILES = (256, 32, 32)  # train / val / test 256-px tiles with 2-class masks: 8 steps of 32
 # each training path: its overrides (``<data>`` stands for its data folder) and the folder of its synthetic data
 TRAIN_PATHS = {
     "train": (TRAIN_OVERRIDES, "data"),
@@ -952,14 +997,20 @@ TRAIN_PATHS = {
     "train-remat": (TRAIN_F32_OVERRIDES + [REMAT_OVERRIDE], "data-512"),
     "train-fused-remat": (TRAIN_OVERRIDES + [FUSED_OVERRIDE, REMAT_OVERRIDE], "data"),
     "train-any2any": (ANY2ANY_OVERRIDES, "domains"),
-    "train-masked-conditioned": (["experiment=he2ihc_masked_conditioned"] + MASK_COMMON, "data-mask"),
+    "train-masked-conditioned": (["experiment=he2ihc_masked_conditioned", "trainer.limit_train_batches=8"]
+                                 + MASK_COMMON, "data-mask"),
     "train-masked": (["experiment=he2ihc_masked_amyloid"] + MASK_COMMON + SHORT, "data-mask"),
     "train-roi": (["experiment=he2ihc_masked_amyloid_ROI"] + MASK_COMMON + SHORT, "data-mask"),
     "train-pos-neg": (["experiment=he2ihc_pos_neg_amyloid", "data.negative_data_dir=<data>"]
                       + MASK_COMMON[:-1] + SHORT, "data-pos-neg"),
+    "train-multitask": (["experiment=multitask_he2ihc_amyloid", f"batch_size={MULTITASK_BATCH}"] + MASK_COMMON
+                        + BATCH_NORM, "data-mask"),
+    "train-multitask-multiclass": (["experiment=gray_matter/multitask_he2ihc_gray_matter",
+                                    "data.target_column=ihc_filepath"] + MASK_COMMON + BATCH_NORM, "data-multiclass"),
 }
+MULTITASK_PATHS = ("train-multitask", "train-multitask-multiclass")  # the shared-encoder nets: no attention
 F32_PATHS = ("train-f32", "train-remat", "train-any2any", "train-masked-conditioned", "train-masked", "train-roi",
-             "train-pos-neg")
+             "train-pos-neg") + MULTITASK_PATHS
 PATH_STEPS = {"train-masked": 4, "train-roi": 4, "train-pos-neg": 4}  # 8 otherwise
 
 
@@ -975,17 +1026,18 @@ def phase_train(card: str, work: Path, name: str = "train") -> tuple[dict, dict]
     8 on trees the caller makes: ``train-masked-conditioned`` (the toggled
     4→3 net, attention at level 3 and in the mid block: six K1 a forward),
     ``train-masked``, ``train-roi`` and ``train-pos-neg`` (the plain net,
-    4 steps). The synthetic data under ``work`` of the first paths is made
-    once per folder and reused. K1-fwd must launch once per attention layer
-    of each net forward (and of each recompute under level remat), K1-bwd
-    once per attention layer a step. Returns (summary, the objects ``train``
-    built)."""
+    4 steps), and the multitask studies under BatchNorm:
+    ``train-multitask`` (f32, 512 px, batch 16, binary) and
+    ``train-multitask-multiclass`` (f32, 256 px, batch 32, 2 classes). The
+    synthetic data under ``work`` of the first paths is made once per folder
+    and reused. K1-fwd must launch once per attention layer of each net
+    forward (and of each recompute under level remat), K1-bwd once per
+    attention layer a step: on the multitask nets, which have none, never.
+    Returns (summary, the objects ``train`` built)."""
     import torch
 
     from stain2stain_tpu_torch.config import compose
     from stain2stain_tpu_torch.models.unet import AttentionBlock
-    from stain2stain_tpu_torch.ops import conv
-    from stain2stain_tpu_torch.ops.attention import fused_attention, fused_attention_backward
     from stain2stain_tpu_torch.train import train
 
     torch.backends.cuda.matmul.allow_tf32 = False  # torch's defaults for training:
@@ -1002,17 +1054,15 @@ def phase_train(card: str, work: Path, name: str = "train") -> tuple[dict, dict]
     cfg["callbacks"]["step_clock"] = {"_target_": f"{__name__}.step_clock"}  # as a script or imported
     torch.cuda.reset_peak_memory_stats()
     # ---- the main path: counts zeroed just before, read just after --------
-    fused_attention.launches = 0
-    fused_attention_backward.launches = 0
-    for kernel in conv.KERNELS:
-        kernel.launches = 0
+    zero_kernel_launches()
     t0 = time.perf_counter()
     metrics, objects = train(cfg)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    fwd_launches, bwd_launches = fused_attention.launches, fused_attention_backward.launches
-    k2, k3, k4, k5 = (kernel.launches for kernel in conv.KERNELS)
+    launches = kernel_launches()
     # ---- end of the main path -----------------------------------------------
+    fwd_launches, bwd_launches = launches["K1-fwd"], launches["K1-bwd"]
+    k2, k3, k4, k5 = (launches[k] for k in ("K2", "K3", "K4", "K5"))
     clock = objects["callbacks"][-1]
     trainer = objects["trainer"]
     task = objects["model"]
@@ -1057,14 +1107,15 @@ def phase_train(card: str, work: Path, name: str = "train") -> tuple[dict, dict]
         raise AssertionError(f"training did not run {want_steps} finite steps with finite val/test losses: {summary}")
     if not summary["best"] or not (Path(ckpt.last_model_path) / "state.pt").is_file():
         raise AssertionError("training wrote no best or last checkpoint")
-    if bwd_launches == 0 or bwd_launches != attention * steps:
-        raise AssertionError(f"K1-bwd launches {bwd_launches} != {attention} attention layers x {steps} backward passes")
+    if (attention == 0) != (name in MULTITASK_PATHS) or bwd_launches != attention * steps:
+        raise AssertionError(f"K1-bwd launches {bwd_launches} != {attention} attention layers x {steps} backward passes "
+                             "(the UNet paths have attention layers, the multitask nets none)")
     if (name in F32_PATHS) != (summary["dtype"] == "torch.float32"):
         raise AssertionError(f"{name} computed in {summary['dtype']}")
     # level remat recomputes every region in each backward pass: each
     # attention layer's K1-fwd and every fused ResBlock's K2 once more a step
     recomputes = steps if remat else 0
-    if fwd_launches == 0 or fwd_launches != attention * (clock.forwards[0] + recomputes):
+    if clock.forwards[0] == 0 or fwd_launches != attention * (clock.forwards[0] + recomputes):
         raise AssertionError(
             f"K1-fwd launches {fwd_launches} != {attention} attention layers x (net forward calls "
             f"{clock.forwards[0]} + recomputes {recomputes})"
@@ -1077,6 +1128,8 @@ def phase_train(card: str, work: Path, name: str = "train") -> tuple[dict, dict]
         raise AssertionError(f"the ROI path logged no flow_loss or roi_charbonnier: {sorted(metrics)}")
     if name == "train-pos-neg" and not 0 < summary["negatives_drawn"] < summary["examples_drawn"]:
         raise AssertionError(f"the pos/neg path drew {summary['negatives_drawn']} negatives")
+    if name in MULTITASK_PATHS:
+        check_multitask_run(name, summary, metrics, ckpt)
     want_fwd = FLAGSHIP_FUSED_CONVS * (clock.forwards[0] + recomputes) if fused else 0
     want_bwd = FLAGSHIP_FUSED_CONVS * steps if fused else 0
     if k2 != want_fwd or (k3, k4, k5) != (want_bwd,) * 3 or (fused and k2 == 0):
@@ -1103,6 +1156,27 @@ def phase_train(card: str, work: Path, name: str = "train") -> tuple[dict, dict]
         if abs(cross - summary["val_loss"]) > 1e-2 * summary["val_loss"]:
             raise AssertionError(f"the fused run's weights give another val loss through the unfused net: {cross}")
     return summary, objects
+
+
+def check_multitask_run(name: str, summary: dict, metrics: dict, ckpt) -> None:
+    """A multitask path logged its segmentation terms (per-class Dice and IoU
+    in eval), ran one encoder pass a train step, and its best checkpoint holds
+    every BatchNorm's running statistics, updated once a step."""
+    import torch
+
+    other = "seg_ce" if name == "train-multitask-multiclass" else "seg_bce"
+    want = [f"train/{k}" for k in ("flow_loss", "seg_loss", "seg_dice", other)]
+    want += [f"{p}/{k}" for p in ("val", "test") for k in ("flow_loss", "seg_loss", "dice_coef", "iou")]
+    missing = [k for k in want if not math.isfinite(metrics.get(k, math.nan))]
+    saved = torch.load(Path(ckpt.best_model_path) / "state.pt", map_location="cpu", weights_only=True)["model"]
+    tracked = {int(v) for k, v in saved.items() if k.endswith("num_batches_tracked")}
+    n_norms = sum(k.endswith("running_var") for k in saved)
+    summary.update(n_batch_norms=n_norms, batch_norm_updates=sorted(tracked),
+                   seg_metrics={k: metrics[k] for k in want if k in metrics})
+    log(f"{name}-seg " + json.dumps({k: summary[k] for k in ("n_batch_norms", "batch_norm_updates", "seg_metrics")}))
+    if missing or n_norms == 0 or tracked != {summary["steps"]}:
+        raise AssertionError(f"{name}: no finite {missing}, or the checkpoint's BatchNorms ({n_norms}, updated "
+                             f"{sorted(tracked)} times) do not match {summary['steps']} steps")
 
 
 def phase_fused_grad_parity() -> dict:
@@ -1599,11 +1673,9 @@ def phase_infer_conditional(card: str, work: Path, summary: dict, task) -> dict:
     from PIL import Image
 
     from stain2stain_tpu_torch import infer_conditional
-    from stain2stain_tpu_torch.ops.attention import fused_attention
     from stain2stain_tpu_torch.ops.solvers import SolverConfig
-    from stain2stain_tpu_torch.server import TranslationServer, serve_forever
+    from stain2stain_tpu_torch.server import TranslationServer
     from stain2stain_tpu_torch.tasks import MaskConditionedFlowMatchingModule, ToggleMaskFlowMatchingModule
-    from stain2stain_tpu_torch.wsi import tile_starts
 
     torch.backends.cuda.matmul.allow_tf32 = False  # torch's defaults for inference
     torch.backends.cudnn.allow_tf32 = True
@@ -1632,43 +1704,16 @@ def phase_infer_conditional(card: str, work: Path, summary: dict, task) -> dict:
     net = task.net
     attention = summary["attention_layers"]
     toggle = ToggleMaskFlowMatchingModule(net=net, solver=SolverConfig("euler"))
-    evals = [0]
-    hook = net.register_forward_hook(lambda *_: evals.__setitem__(0, evals[0] + 1))
-    # ---- the main path: counts zeroed just before, read just after --------
-    fused_attention.launches = 0
-    t0 = time.perf_counter()
-    server = TranslationServer(toggle, num_steps=2, tile=256, overlap=32, batch=16)
-    warm_s = time.perf_counter() - t0
-    ready = threading.Event()
-    thread = threading.Thread(target=serve_forever, args=(server, "127.0.0.1", 0, ready), daemon=True)
-    thread.start()
     img = _test_image(1000, 900, seed=1000 * 900)
-    try:
-        if not ready.wait(30):
-            raise RuntimeError("server did not bind")
-        req = urllib.request.Request(f"http://127.0.0.1:{server.bound_port}/translate", data=_png(img),
-                                     headers={"Content-Type": "image/png"})
-        t1 = time.perf_counter()
-        with urllib.request.urlopen(req, timeout=600) as resp:
-            status, payload = resp.status, resp.read()
-        latency = time.perf_counter() - t1
-    finally:
-        if server.httpd is not None:
-            server.httpd.shutdown()
-        thread.join(timeout=30)
-    if thread.is_alive():
-        raise RuntimeError("server thread did not stop")
-    launches, total_evals = fused_attention.launches, evals[0]
-    # ---- end of the main path ---------------------------------------------
-    hook.remove()
-    served = np.asarray(Image.open(io.BytesIO(payload)).convert("RGB"))
-    n_tiles = len(tile_starts(1000, 256, 224)) * len(tile_starts(900, 256, 224))
-    request = dict(card=card, status=status, latency_s=latency, tiles=n_tiles, tiles_per_s=n_tiles / latency,
-                   warmup_s=warm_s, velocity_evals=total_evals, k1_launches=launches,
-                   mean_abs_change=float(np.abs(served.astype(np.float32) - img).mean()))
+    served = _serve_one_request(toggle, img)
+    launches, total_evals = served["launches"]["K1-fwd"], served["net_passes"]
+    request = dict(card=card, status=served["status"], latency_s=served["latency_s"], tiles=served["tiles"],
+                   tiles_per_s=served["tiles_per_s"], warmup_s=served["warmup_s"], velocity_evals=total_evals,
+                   k1_launches=launches, mean_abs_change=served["mean_abs_change"])
     log("serve-toggle-request " + json.dumps(request))
     out["serve"] = request
-    if status != 200 or served.shape != img.shape or launches == 0 or launches != attention * total_evals:
+    if (request["status"] != 200 or served["shape"] != list(img.shape) or launches == 0
+            or launches != attention * total_evals):
         raise AssertionError(f"the toggled model served wrongly: {request}")
 
     conditioned = MaskConditionedFlowMatchingModule(net=net, solver=SolverConfig("euler"))
@@ -1778,6 +1823,279 @@ def mask_phases(card: str, work: Path, timed=lambda label, fn, *args: fn(*args))
             "mask-grad-parity": grad}
 
 
+def zero_kernel_launches() -> None:
+    """Every hand-written kernel's launch count to 0 (K1-fwd, K1-bwd, K2-K5)."""
+    from stain2stain_tpu_torch.ops import conv
+    from stain2stain_tpu_torch.ops.attention import fused_attention, fused_attention_backward
+
+    for kernel in (fused_attention, fused_attention_backward, *conv.KERNELS):
+        kernel.launches = 0
+
+
+def kernel_launches() -> dict:
+    """{kernel: launches since the counts were zeroed}."""
+    from stain2stain_tpu_torch.ops import conv
+    from stain2stain_tpu_torch.ops.attention import fused_attention, fused_attention_backward
+
+    counts = {"K1-fwd": fused_attention.launches, "K1-bwd": fused_attention_backward.launches}
+    counts.update({f"K{i}": kernel.launches for i, kernel in enumerate(conv.KERNELS, start=2)})
+    return counts
+
+
+def make_multiclass_data(work: Path) -> None:
+    """``data-multiclass``: ``MULTICLASS_TILES`` 256-px tiles with 2-class
+    masks (the port's generator, ``num_mask_classes=2``), under the columns
+    ``he_filepath``, ``ihc_filepath`` and ``graywhite_filepath``."""
+    from stain2stain_tpu_torch.data.synthetic import generate_paired_dataset
+
+    n_train, n_val, n_test = MULTICLASS_TILES
+    generate_paired_dataset(work / "data-multiclass", n_train=n_train, n_val=n_val, n_test=n_test, size=256, seed=0,
+                            with_mask=True, num_mask_classes=2)
+
+
+def _serve_one_request(task, img) -> dict:
+    """``task`` behind ``TranslationServer`` (tile 256, overlap 32, batch 16,
+    its ``generate`` with 2 steps) over HTTP on 127.0.0.1: one PNG request of
+    ``img``; the response, its time, and from the warm-up on the net's forward
+    passes (a multitask net's encoder passes) and every kernel's launches."""
+    import numpy as np
+    from PIL import Image
+
+    from stain2stain_tpu_torch.server import TranslationServer, serve_forever
+    from stain2stain_tpu_torch.wsi import tile_starts
+
+    passes = [0]
+    net = getattr(task.net, "encoder", task.net)
+    hook = net.register_forward_hook(lambda *_: passes.__setitem__(0, passes[0] + 1))
+    # ---- the main path: counts zeroed just before, read just after --------
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    server = TranslationServer(task, num_steps=2, tile=256, overlap=32, batch=16)
+    warm_s = time.perf_counter() - t0
+    ready = threading.Event()
+    thread = threading.Thread(target=serve_forever, args=(server, "127.0.0.1", 0, ready), daemon=True)
+    thread.start()
+    try:
+        if not ready.wait(30):
+            raise RuntimeError("server did not bind")
+        req = urllib.request.Request(f"http://127.0.0.1:{server.bound_port}/translate", data=_png(img),
+                                     headers={"Content-Type": "image/png"})
+        t1 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            status, payload = resp.status, resp.read()
+        latency = time.perf_counter() - t1
+    finally:
+        if server.httpd is not None:
+            server.httpd.shutdown()
+        thread.join(timeout=30)
+    launches = kernel_launches()
+    # ---- end of the main path ---------------------------------------------
+    hook.remove()
+    if thread.is_alive():
+        raise RuntimeError("server thread did not stop")
+    served = np.asarray(Image.open(io.BytesIO(payload)).convert("RGB"))
+    tiles = len(tile_starts(img.shape[0], 256, 224)) * len(tile_starts(img.shape[1], 256, 224))
+    return dict(status=status, latency_s=latency, tiles=tiles, tiles_per_s=tiles / latency, warmup_s=warm_s,
+                net_passes=passes[0], launches=launches, shape=list(served.shape),
+                mean_abs_change=float(np.abs(served.astype(np.float32) - img).mean()))
+
+
+def phase_infer_multitask(card: str, work: Path, name: str, summary: dict, task, datamodule) -> dict:
+    """``infer_multitask_multiclassloss`` on a multitask path's best checkpoint
+    (euler, 2 steps, 4 test tiles): source / generated / target / predicted
+    mask / true mask panels, the predicted mask binary (0 or 255: class ids
+    in {0, 1}); the trained task's segmentation head on 4 tiles of the run's
+    validation loader gives ids in {0, 1} (multiclass) or a {0, 1} mask
+    (binary). For the
+    binary study, then the task (euler, 2 steps) behind ``TranslationServer``:
+    one request on phase 5's 1000×900 region. No K1–K5 launch in any."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from stain2stain_tpu_torch import infer_multitask_multiclassloss
+    from stain2stain_tpu_torch.ops.solvers import SolverConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # torch's defaults for inference
+    torch.backends.cudnn.allow_tf32 = True
+    multiclass = name == "train-multitask-multiclass"
+    px = 256 if multiclass else 512
+    if multiclass:
+        argv = ["model=conditional_flow_matching_multitask_multiclass", "+num_classes=2",
+                "data=paired_data_multiclass_seg_mask", f"data.data_dir={work / 'data-multiclass'}",
+                "data.target_column=ihc_filepath", "data.image_size=256"]
+    else:
+        argv = ["model=conditional_flow_matching_multitask", "data=paired_data_mask_he_amyloid",
+                f"data.data_dir={work / 'data-mask'}"]
+    argv += ["data.csv_file_name=metadata.csv", "data.batch_size=4", *BATCH_NORM, f"ckpt_path={summary['best_path']}",
+             "num_steps=2", "n_images=4", "model.solver.solver=euler"]
+    out: dict = {"card": card}
+    # ---- the main path: counts zeroed just before, read just after --------
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    panels, _ = _cli(infer_multitask_multiclassloss, argv, work)
+    launches = kernel_launches()
+    # ---- end of the main path ---------------------------------------------
+    rows = [np.asarray(Image.open(f)) for f in sorted(panels.iterdir())]
+    pred = np.concatenate([r[:, 3 * px:4 * px].ravel() for r in rows]) if rows else np.zeros(0)
+    out["infer"] = dict(panels=len(rows), panel_shape=list(rows[0].shape) if rows else None,
+                        pred_mask_values=sorted(int(v) for v in np.unique(pred)), launches=launches,
+                        s=time.perf_counter() - t0)
+    src = task.prepare_batch(task.device_fields(next(iter(datamodule.val_dataloader()))))[0][:4]
+    with torch.no_grad():
+        ids = task.predict_mask(task.forward_segmentation(src))
+    out["seg_head_values"] = sorted(int(v) for v in torch.unique(ids).tolist())
+    log(f"{name}-infer " + json.dumps(out))
+    if (len(rows) != 4 or out["infer"]["panel_shape"] != [px, 5 * px, 3] or not set(out["infer"]["pred_mask_values"])
+            <= {0, 255} or not set(out["seg_head_values"]) <= {0, 1} or any(launches.values())):
+        raise AssertionError(f"infer_multitask_multiclassloss wrote the wrong panels, or a kernel launched: {out}")
+    if multiclass:
+        return out
+    serve_task = type(task)(net=task.net, solver=SolverConfig("euler"), time_emb_dim=task.time_emb_dim)
+    img = _test_image(1000, 900, seed=1000 * 900)
+    request = dict(_serve_one_request(serve_task, img), card=card)
+    out["serve"] = request
+    log("serve-multitask-request " + json.dumps(request))
+    if request["status"] != 200 or request["shape"] != list(img.shape) or any(request["launches"].values()):
+        raise AssertionError(f"the multitask task served wrongly: {request}")
+    return out
+
+
+def _multitask_step(task, batch: tuple, t, dtype) -> tuple:
+    """One train step's (loss, gradients, running statistics, seconds, kernel
+    launches) of ``task`` with its net and inputs in ``dtype``."""
+    import torch
+
+    task.net.to(dtype)
+    task.net.dtype = dtype
+    prepared = tuple(x.to(dtype) if x.is_floating_point() else x for x in task.prepare_batch(batch, train=False))
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    loss, _ = task.loss_and_metrics(prepared, train=True, t=t.to(dtype))
+    loss.backward()
+    if task.device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    stats = {k: v.detach().double().cpu() for k, v in task.net.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    grads = {n: p.grad.detach().double().cpu() for n, p in task.net.named_parameters()}
+    return loss.item(), grads, stats, seconds, kernel_launches()
+
+
+def _max_err(a: dict, b: dict) -> tuple[float, str]:
+    errs = {n: (a[n] - b[n]).abs().max().item() for n in b}
+    worst = max(errs, key=errs.get) if errs else ""
+    return errs.get(worst, 0.0), worst
+
+
+def phase_multitask_grad_parity() -> dict:
+    """One f32 train step of the full-width multitask net
+    (``experiment=multitask_he2ihc_amyloid``: features 64…1024, decoders
+    512…64) at batch 2, 256 px, on the card (TF32 off, deterministic cuDNN)
+    against the same step on the CPU, under ``norm="group"`` (the configs'
+    default) and ``norm="batch"``: the loss, the BatchNorm running statistics
+    after the step within ``BN_STATS_TOL``, no K1–K5 launch, and every
+    parameter gradient within ``GRAD_REL_TOL`` × max|g|.
+
+    Under BatchNorm two f32 steps cannot meet that bound: the gradients of
+    the first convs move by about 1e-3 × max|g| under f32 rounding (on an
+    H100 and its host, the CPU's f32 step lay 0.95e-3 × max|g| from the same
+    step in float64, the card's float64 step 0.38e-3 from the CPU's; the
+    numbers are in PERF.md). So under
+    BatchNorm the step also runs in float64 (the net's and the inputs'
+    dtype; the losses and the time embedding stay f32) on both: the card's
+    float64 gradients must lie within ``GRAD_REL_TOL`` × max|g| of the
+    CPU's, and the card's f32 gradients no further from the CPU's float64
+    step than ``F32_FLOOR_FACTOR`` × the CPU's own f32 gradients."""
+    import numpy as np
+    import torch
+
+    from stain2stain_tpu_torch.config import compose
+    from stain2stain_tpu_torch.utils.utils import instantiate_task
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    deterministic, benchmark = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    log("multitask-grad-parity: TF32 off for matmul and cuDNN, deterministic cuDNN")
+    rng = np.random.default_rng(11)
+    batch = tuple(rng.integers(0, 256, size=(2, 256, 256, 3), dtype=np.uint8) for _ in range(2))
+    batch += ((rng.random((2, 256, 256)) > 0.7).astype(np.uint8),)
+    t = torch.tensor([0.3, 0.8])
+    rows = {}
+    try:
+        for norm in ("group", "batch"):
+            cfg = compose(REPO / "configs", "train.yaml",
+                          ["experiment=multitask_he2ihc_amyloid"] + (BATCH_NORM if norm == "batch" else []))
+            torch.manual_seed(0)
+            state = instantiate_task(cfg.model, device="cpu").net.state_dict()
+            dtypes = (torch.float32, torch.float64) if norm == "batch" else (torch.float32,)
+            steps = {}
+            for dtype in dtypes:
+                for dev in ("cuda", "cpu"):
+                    task = instantiate_task(cfg.model, device=dev)
+                    task.net.load_state_dict(state)
+                    steps[dev, dtype] = _multitask_step(task, batch, t, dtype)
+                    del task
+            (loss_gpu, g_gpu, s_gpu, gpu_s, launches), (loss_cpu, g_cpu, s_cpu, cpu_s, _) = (
+                steps["cuda", torch.float32], steps["cpu", torch.float32])
+            ref_max = max(g.abs().max().item() for g in g_cpu.values())
+            err, worst = _max_err(g_gpu, g_cpu)
+            stats_err = max([(s_gpu[k] - s_cpu[k]).abs().max().item() for k in s_cpu], default=0.0)
+            row = dict(norm=norm, loss_card=loss_gpu, loss_cpu=loss_cpu, max_abs_grad_err=err, worst_param=worst,
+                       ref_max_abs_grad=ref_max, tol=GRAD_REL_TOL * ref_max, batch_norms=len(s_cpu) // 2,
+                       max_abs_stats_err=stats_err, stats_tol=BN_STATS_TOL, card_step_s=gpu_s, cpu_step_s=cpu_s,
+                       n_params=sum(g.numel() for g in g_cpu.values()), launches=launches)
+            ok = (abs(loss_gpu - loss_cpu) <= 1e-4 * max(1.0, abs(loss_cpu)) and stats_err <= BN_STATS_TOL
+                  and (norm == "group") == (not s_cpu) and not any(launches.values())
+                  and all(torch.isfinite(g).all() for g in g_gpu.values()))
+            if norm == "group":
+                ok = ok and err <= row["tol"]
+            else:
+                g64_gpu, g64_cpu = steps["cuda", torch.float64][1], steps["cpu", torch.float64][1]
+                row["f64_card_vs_cpu"], row["f64_worst_param"] = _max_err(g64_gpu, g64_cpu)
+                row["f32_card_vs_cpu_f64"], _ = _max_err(g_gpu, g64_cpu)
+                row["f32_cpu_vs_cpu_f64"], _ = _max_err(g_cpu, g64_cpu)
+                row["f32_floor_bound"] = F32_FLOOR_FACTOR * row["f32_cpu_vs_cpu_f64"]
+                row["cpu_f64_step_s"] = steps["cpu", torch.float64][3]
+                ok = (ok and row["f64_card_vs_cpu"] <= row["tol"]
+                      and row["f32_card_vs_cpu_f64"] <= row["f32_floor_bound"])
+            row["ok"] = ok
+            log("multitask-grad-parity " + json.dumps(row))
+            rows[norm] = row
+            del steps
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic, benchmark
+    if not all(r["ok"] for r in rows.values()):
+        raise AssertionError(f"multitask gradients or statistics on the card disagree with the CPU: {rows}")
+    return rows
+
+
+def multitask_phases(card: str, work: Path, timed=lambda label, fn, *args: fn(*args)) -> dict:
+    """Phases 19–21 in a row, their data under ``work`` (phase 16's masked
+    tree, made here if absent, and the 2-class tree): ``train-multitask`` and
+    ``phase_infer_multitask`` on its task, ``train-multitask-multiclass`` and
+    its inference, ``phase_multitask_grad_parity``."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (work / "data-mask" / "metadata.csv").exists():
+        timed("mask-data", make_mask_data, work)
+    timed("multiclass-data", make_multiclass_data, work)
+    out = {}
+    for name in MULTITASK_PATHS:
+        summary, objects = timed(name, phase_train, card, work, name)
+        infer = timed(name.replace("train", "infer"), phase_infer_multitask, card, work, name, summary,
+                      objects["model"], objects["datamodule"])
+        out[name] = (summary, infer)
+        del objects
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["multitask-grad-parity"] = timed("multitask-grad-parity", phase_multitask_grad_parity)
+    return out
+
+
 def _device_us(event) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, name):
@@ -1851,6 +2169,12 @@ def phase_profile(net, card: str) -> dict:
     return result
 
 
+# torch's own GroupNorm and BatchNorm kernels (the multitask nets'; the UNet's
+# norms are the port's reductions and elementwise passes)
+_NORM_KERNELS = ("GroupNorm", "RowwiseMoments", "ComputeFusedParams", "ComputeInternalGradients",
+                 "ComputeBackwardFusedParams", "GammaBetaBackward", "batch_norm", "BatchNorm", "bn_fw", "bn_bw")
+
+
 def _train_kernel_category(name: str) -> str:
     """A device kernel's layer, from its name."""
     if any(s in name for s in ("conv3x3_fwd_kernel", "prologue_grad", "conv3x3_wgrad_kernel", "wgrad_reduce")):
@@ -1861,6 +2185,12 @@ def _train_kernel_category(name: str) -> str:
         return "attention backward K1-bwd"
     if "nchwToNhwc" in name or "nhwcToNchw" in name:
         return "cuDNN layout transposes"
+    if any(s in name for s in _NORM_KERNELS):
+        return "GroupNorm / BatchNorm kernels"
+    if "upsample_bilinear" in name:
+        return "bilinear resizes"
+    if "max_pool" in name:
+        return "max pooling"
     if any(s in name for s in ("xmma", "gemm", "conv", "wgrad", "dgrad", "cutlass", "cudnn")):
         return "convolutions and matmuls"
     if "<int" in name:
@@ -1879,6 +2209,10 @@ PROFILED_STEPS = {
                             "bf16-mixed"),
     "profile-train-f32": (["experiment=quality_synthetic_256", "trainer.accelerator=gpu", "trainer.precision=32"], 6,
                           512, 32),
+    "profile-train-multitask": (["experiment=multitask_he2ihc_amyloid", "trainer.accelerator=gpu"] + BATCH_NORM,
+                                MULTITASK_BATCH, 512, 32),
+    "profile-train-multitask-group": (["experiment=multitask_he2ihc_amyloid", "trainer.accelerator=gpu"],
+                                      MULTITASK_BATCH, 512, 32),
 }
 
 
@@ -1887,7 +2221,9 @@ def phase_profile_train(card: str, name: str = "profile-train") -> dict:
 
     The flagship task of ``PROFILED_STEPS[name]``: batch 32, 256 px,
     bf16-mixed, unfused or with ``+model.net.fused_conv=true``; or batch 6,
-    512 px, f32. Through the trainer's own step (augmentation, loss,
+    512 px, f32; or the binary multitask study (batch 16, 512 px, f32, a
+    random binary mask) under BatchNorm or the configs' GroupNorm. Through
+    the trainer's own step (augmentation, loss,
     backward, Adam), under ``torch.profiler`` for three steps after two
     warm-up steps: device time by kernel, the device's busy share of the wall
     time, and each kernel category's share.
@@ -1897,21 +2233,23 @@ def phase_profile_train(card: str, name: str = "profile-train") -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from stain2stain_tpu_torch.config import compose, instantiate
+    from stain2stain_tpu_torch.config import compose
     from stain2stain_tpu_torch.training import Trainer
+    from stain2stain_tpu_torch.utils.utils import instantiate_task
 
     torch.backends.cudnn.allow_tf32 = True  # torch's defaults for training
     torch.backends.cuda.matmul.allow_tf32 = False
     overrides, batch_size, px, precision = PROFILED_STEPS[name]
     cfg = compose(REPO / "configs", "train.yaml", overrides)
     torch.manual_seed(0)
-    task = instantiate(cfg.model, net=instantiate(cfg.model.net, device="cuda"), device="cuda")
+    task = instantiate_task(cfg.model, device="cuda")
     trainer = Trainer(accelerator="gpu", precision=precision, logger=False)
     trainer._prepare_task(task)
     trainer._init_state(task)
     rng = np.random.default_rng(0)
-    batch = tuple(torch.from_numpy(rng.integers(0, 256, (batch_size, px, px, 3), dtype=np.uint8)).cuda()
-                  for _ in range(2))
+    shapes = {"image": (batch_size, px, px, 3), "mask": (batch_size, px, px)}
+    batch = tuple(torch.from_numpy(rng.integers(0, 256 if kind == "image" else 2, shapes[kind], dtype=np.uint8)).cuda()
+                  for kind in task.device_fields(task.batch_fields))
     augment = {"crop_size": px, "hflip": True, "vflip": True}
     for _ in range(2):
         trainer._train_step(task, batch, augment)
@@ -2094,11 +2432,32 @@ def main() -> int:
 
         # 16-18. the mask studies
         masks = mask_phases(card, work, timed)
+
+        # 19-21. the multitask studies (no K1-K5 on their paths)
+        multitask = multitask_phases(card, work, timed)
+        if args.profile:
+            for name in ("profile-train-multitask", "profile-train-multitask-group"):
+                gc.collect()
+                torch.cuda.empty_cache()
+                phase_profile_train(card, name)
     torch.cuda.empty_cache()
     cond_summary, infer_cond, mask_paths = masks["train-masked-conditioned"], masks["infer-conditional"], masks["short"]
+    (mt_summary, mt_infer), (mc_summary, mc_infer) = (multitask[n] for n in MULTITASK_PATHS)
     log("phase-seconds " + json.dumps(seconds))
 
-    # 19. result lines
+    # the multitask paths' launches of each kernel (none: their nets have no
+    # attention and their convs are cuDNN's)
+    mt_launches = {
+        kernel: {"train_multitask": mt_summary[key], "infer_multitask": mt_infer["infer"]["launches"][kernel],
+                 "serve_multitask": mt_infer["serve"]["launches"][kernel],
+                 "train_multitask_multiclass": mc_summary[key],
+                 "infer_multitask_multiclass": mc_infer["infer"]["launches"][kernel],
+                 "multitask_grad_parity": sum(r["launches"][kernel] for r in multitask["multitask-grad-parity"].values())}
+        for kernel, key in (("K1-fwd", "k1_fwd_launches"), ("K1-bwd", "k1_bwd_launches"), ("K2", "k2_launches"),
+                            ("K3", "k3_launches"), ("K4", "k4_launches"), ("K5", "k5_launches"))
+    }
+
+    # 22. result lines
     def row(name, source, replaces, case, launches, by_path, passed):
         return {
             "name": name,
@@ -2138,7 +2497,7 @@ def main() -> int:
              "train_remat": remat_summary["k1_fwd_launches"], "train_fused_remat": fused_remat_summary["k1_fwd_launches"],
              "train_any2any": any2any_summary["k1_fwd_launches"], "serve_any2any": serve_any2any["k1_launches"],
              "train_masked_conditioned": cond_summary["k1_fwd_launches"], "serve_toggle": infer_cond["serve"]["k1_launches"],
-             **{n.replace("-", "_"): m["k1_fwd_launches"] for n, m in mask_paths.items()}},
+             **{n.replace("-", "_"): m["k1_fwd_launches"] for n, m in mask_paths.items()}, **mt_launches["K1-fwd"]},
             all(c["ok"] for c in k1["cases"]) and parity["ok"]),
         row("attention_bwd (K1-bwd)", "stain2stain_tpu_torch/csrc/attention_bwd.cu",
             "stain2stain_tpu/ops/pallas_attention.py:78", k1_bwd["cases"][0], train_summary["k1_bwd_launches"],
@@ -2147,11 +2506,11 @@ def main() -> int:
              "train_fused_remat": fused_remat_summary["k1_bwd_launches"],
              "train_any2any": any2any_summary["k1_bwd_launches"],
              "train_masked_conditioned": cond_summary["k1_bwd_launches"],
-             **{n.replace("-", "_"): m["k1_bwd_launches"] for n, m in mask_paths.items()}},
+             **{n.replace("-", "_"): m["k1_bwd_launches"] for n, m in mask_paths.items()}, **mt_launches["K1-bwd"]},
             all(c["ok"] for c in k1_bwd["cases"]) and grad["ok"] and masks["mask-grad-parity"]["ok"]),
     ] + [
         row(title, f"stain2stain_tpu_torch/csrc/{source}", replaces, convs["rows"][k][0], fused_summary[key],
-            {"train_fused": fused_summary[key], "train_fused_remat": fused_remat_summary[key]},
+            {"train_fused": fused_summary[key], "train_fused_remat": fused_remat_summary[key], **mt_launches[k]},
             all(c["ok"] for c in convs["rows"][k]) and conv_ok)
         for k, (title, source, replaces, key) in conv_sources.items()
     ]

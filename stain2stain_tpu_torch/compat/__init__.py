@@ -1,5 +1,6 @@
 """Weight conversion between the JAX package, reference checkpoints and the port."""
 
+from .multitask import multitask_state_dict_from_flax, segmentation_unet_state_dict_from_flax
 from .unet import (
     frac_head_state_dict_from_flax,
     load_reference_checkpoint,
@@ -12,4 +13,6 @@ __all__ = [
     "unet_state_dict_from_flax",
     "unet_4to3_state_dict_from_flax",
     "frac_head_state_dict_from_flax",
+    "multitask_state_dict_from_flax",
+    "segmentation_unet_state_dict_from_flax",
 ]

@@ -5,6 +5,7 @@ from .base import ConcatDataset, DataLoader, DataModule, Dataset, default_collat
 from .class_conditional import ClassConditionalAnyToAnyDataModule, PairedAnyToAnyDataset
 from .paired_data_mask import PairedHEIHCDataModule, PairedHEIHCDataset, load_mask_binary
 from .paired_data_module import PairedDataModule, PairedDataset
+from .paired_data_multiclassmask import PairedMulticlassDataModule, PairedMulticlassDataset, load_class_mask
 from .paired_pos_neg import NegativePairedDataset, PairedPosNegDataModule
 
 __all__ = [
@@ -18,6 +19,9 @@ __all__ = [
     "PairedHEIHCDataset",
     "PairedHEIHCDataModule",
     "load_mask_binary",
+    "PairedMulticlassDataset",
+    "PairedMulticlassDataModule",
+    "load_class_mask",
     "NegativePairedDataset",
     "PairedPosNegDataModule",
     "PairedAnyToAnyDataset",

@@ -2,8 +2,9 @@
 
 On ``prepare_data`` it writes a deterministic synthetic paired-tile tree
 (:mod:`.synthetic`) and then behaves like :class:`PairedDataModule`, or with
-``with_mask`` (a binary mask) like :class:`PairedHEIHCDataModule`. Multiclass
-masks (``num_mask_classes > 1``) come with the multitask tasks.
+``with_mask`` like :class:`PairedHEIHCDataModule` (a binary mask) or, with
+``num_mask_classes > 1``, like :class:`PairedMulticlassDataModule` (class
+ids, cropped and flipped with the tiles when ``use_augmentation``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Optional
 from .base import DataModule
 from .paired_data_mask import PairedHEIHCDataModule
 from .paired_data_module import PairedDataModule
+from .paired_data_multiclassmask import PairedMulticlassDataModule
 from .synthetic import generate_paired_dataset
 
 
@@ -36,10 +38,6 @@ class SyntheticPairedDataModule(DataModule):
         deterministic: bool = False,
         cache: Optional[str] = None,
     ):
-        if with_mask and num_mask_classes > 1:
-            raise NotImplementedError(
-                "synthetic multiclass masks (num_mask_classes > 1) come with the multitask tasks, not ported yet"
-            )
         # the JAX package's directory naming, so both packages share a tree
         variant = f"s{tile_size}_m{num_mask_classes if with_mask else 0}_n{n_train}-{n_val}-{n_test}_seed{seed}"
         if deterministic:
@@ -62,7 +60,14 @@ class SyntheticPairedDataModule(DataModule):
             seed=seed,
             cache=cache,
         )
-        if with_mask:
+        if with_mask and num_mask_classes > 1:
+            self._inner = PairedMulticlassDataModule(
+                mask_column="graywhite_filepath",
+                use_augmentation=use_augmentation,
+                load_size=tile_size if use_augmentation else None,
+                **common,
+            )
+        elif with_mask:
             self._inner = PairedHEIHCDataModule(mask_column="amyloid_filepath", **common)
         else:
             self._inner = PairedDataModule(

@@ -16,7 +16,7 @@ from typing import Optional
 
 from .config import Config, config_main, instantiate
 from .utils.pylogger import RankedLogger
-from .utils.utils import extras, instantiate_loggers, log_hyperparameters, task_wrapper
+from .utils.utils import extras, instantiate_loggers, instantiate_task, log_hyperparameters, task_wrapper
 
 log = RankedLogger(__name__, rank_zero_only=True)
 
@@ -39,8 +39,7 @@ def evaluate(cfg: Config) -> tuple[dict, dict]:
     trainer = instantiate(cfg["trainer"], logger=logger)
 
     log.info(f"Instantiating model <{cfg['model']['_target_']}> on {trainer.device}")
-    net = instantiate(cfg["model"]["net"], device=trainer.device)
-    model = instantiate(cfg["model"], net=net, device=trainer.device)
+    model = instantiate_task(cfg["model"], device=trainer.device)
 
     object_dict = {"cfg": cfg, "datamodule": datamodule, "model": model, "logger": logger, "trainer": trainer}
     if logger:

@@ -21,6 +21,7 @@ from .config import Config, instantiate
 from .ops.image import denormalize
 from .training.state import load_heads
 from .utils.pylogger import RankedLogger
+from .utils.utils import instantiate_task
 
 log = RankedLogger(__name__, rank_zero_only=True)
 
@@ -49,13 +50,12 @@ def load_state(ckpt_path: str) -> tuple[dict, dict]:
 
 
 def load_task(cfg: Config):
-    """The task of ``cfg.model`` with its net on ``cfg.device`` (the CUDA card
+    """The task of ``cfg.model`` with its nets on ``cfg.device`` (the CUDA card
     unless ``device=cpu``) and the weights of ``cfg.ckpt_path``, its heads'
     too (the aux-fraction head)."""
     model, heads, _ = _read_checkpoint(cfg["ckpt_path"])
-    net = instantiate(cfg["model"]["net"], device=cfg.get("device"))
-    net.load_state_dict(model, strict=True)
-    task = instantiate(cfg["model"], net=net)
+    task = instantiate_task(cfg["model"], device=cfg.get("device"))
+    task.net.load_state_dict(model, strict=True)
     load_heads(task.heads, {"heads": heads}, cfg["ckpt_path"])
     return task
 

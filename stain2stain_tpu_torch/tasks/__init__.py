@@ -8,6 +8,8 @@ from .conditional_flow_matching_conditional_mask import MaskConditionedFlowMatch
 from .conditional_flow_matching_masked import MaskedFlowMatchingModule
 from .conditional_flow_matching_roi_loss import ROICharbonnierFlowMatchingModule
 from .conditional_flow_matching_toggle_mask import ToggleMaskFlowMatchingModule
+from .multitask import MultitaskFlowMatchingModule, MultitaskNet, SharedBackboneTask
+from .multitask_multiclass import MultitaskMulticlassFlowMatchingModule
 
 __all__ = [
     "FlowMatchingTask",
@@ -18,4 +20,8 @@ __all__ = [
     "MaskConditionedFlowMatchingModule",
     "ToggleMaskFlowMatchingModule",
     "AuxFractionFlowMatchingModule",
+    "SharedBackboneTask",
+    "MultitaskNet",
+    "MultitaskFlowMatchingModule",
+    "MultitaskMulticlassFlowMatchingModule",
 ]

@@ -5,8 +5,9 @@ solver and optimizer configuration:
 
 - ``prepare_batch(batch, generator, train, augment)`` — host or device
   fields → device tensors: uint8 RGB → float32 [-1, 1], masks → float32
-  (B, H, W, 1), and in training the *shared* random crop and flips over the
-  images and masks (``base.py:60-107``);
+  (B, H, W, 1), class masks → int64 ids (B, H, W), and in training the
+  *shared* random crop and flips over the images, masks and class masks
+  (``base.py:60-107``);
 - ``loss_and_metrics(batch, generator, train)`` → (loss, metrics);
 - ``configure_optimizers()`` → (optimizer over ``trainable_parameters()``:
   the net's, then those of the task's own ``heads``, scheduler);
@@ -37,8 +38,10 @@ class FlowMatchingTask:
 
     ``batch_fields`` names each field of a loader batch: ``"image"`` (uint8
     RGB (B, H, W, 3) → [-1, 1]), ``"mask"`` (uint8 or float (B, H, W) or
-    (B, H, W, 1) → float32 (B, H, W, 1)), ``"label"`` (int class ids → int64
-    on the task's device) or ``"meta"`` (host-only, e.g. filenames).
+    (B, H, W, 1) → float32 (B, H, W, 1)), ``"class_mask"`` (integer class
+    ids (B, H, W) or (B, H, W, 1) → int64 (B, H, W)), ``"label"`` (int class
+    ids → int64 on the task's device) or ``"meta"`` (host-only, e.g.
+    filenames).
     ``device``: where the net runs; ``None`` keeps the device the net's
     parameters already lie on (the UNet resolves its own, CUDA by default).
 
@@ -103,19 +106,21 @@ class FlowMatchingTask:
         augment: Optional[dict] = None,
     ) -> tuple:
         """Device tensors of a batch's fields; with ``train`` and ``augment``
-        one crop and flip shared across the image and mask fields (applied
-        before the conversion: the same pixels either way)."""
+        one crop and flip shared across the image, mask and class-mask fields
+        (applied before the conversion: the same pixels either way; the class
+        masks last in the group, as JAX orders it, and never through floats)."""
         kinds = [k for k in self.batch_fields if k != "meta"][: len(batch)]
-        if "class_mask" in kinds:
-            raise NotImplementedError("'class_mask' batch fields come with the multitask tasks, not ported yet")
-        unknown = [kind for kind in kinds if kind not in ("image", "mask", "label")]
+        unknown = [kind for kind in kinds if kind not in ("image", "mask", "class_mask", "label")]
         if unknown:
             raise NotImplementedError(f"batch field kinds {unknown} are not ported")
         arrays = [torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x).to(self.device) for x in batch]
         for i, kind in enumerate(kinds):
             if kind == "mask" and arrays[i].ndim == 3:
                 arrays[i] = arrays[i][..., None]
+            elif kind == "class_mask" and arrays[i].ndim == 4:
+                arrays[i] = arrays[i][..., 0]
         spatial = [i for i, kind in enumerate(kinds) if kind in ("image", "mask")]
+        spatial += [i for i, kind in enumerate(kinds) if kind == "class_mask"]
         if train and augment and spatial:
             cropped = paired_random_crop_flip(
                 [arrays[i] for i in spatial],
@@ -127,7 +132,7 @@ class FlowMatchingTask:
             for i, x in zip(spatial, cropped):
                 arrays[i] = x
         return tuple(
-            x.to(torch.int64) if kind == "label"
+            x.to(torch.int64) if kind in ("label", "class_mask")
             else x.to(torch.float32) if kind == "mask" or x.dtype != torch.uint8
             else normalize_uint8(x)
             for x, kind in zip(arrays, kinds)

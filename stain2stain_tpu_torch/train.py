@@ -26,6 +26,7 @@ from .utils.utils import (
     get_metric_value,
     instantiate_callbacks,
     instantiate_loggers,
+    instantiate_task,
     log_hyperparameters,
     task_wrapper,
 )
@@ -56,10 +57,9 @@ def train(cfg: Config) -> tuple[dict, dict]:
     log.info(f"Instantiating trainer <{cfg['trainer']['_target_']}>")
     trainer = instantiate(cfg["trainer"], callbacks=callbacks, logger=logger)
 
-    # the net is built on the trainer's device (the CUDA card unless trainer=cpu)
+    # the nets are built on the trainer's device (the CUDA card unless trainer=cpu)
     log.info(f"Instantiating model <{cfg['model']['_target_']}> on {trainer.device}")
-    net = instantiate(cfg["model"]["net"], device=trainer.device)
-    model = instantiate(cfg["model"], net=net, device=trainer.device)
+    model = instantiate_task(cfg["model"], device=trainer.device)
 
     object_dict = {
         "cfg": cfg,

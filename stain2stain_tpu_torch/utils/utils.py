@@ -3,6 +3,7 @@
 
 - :func:`instantiate_callbacks` / :func:`instantiate_loggers` build every
   child with a ``_target_`` of a config group;
+- :func:`instantiate_task` builds a task with its networks on a device;
 - :func:`extras` applies ``cfg.extras`` (warnings filter, tag enforcement,
   config print);
 - :func:`task_wrapper` logs a task's exception and its output dir;
@@ -21,6 +22,18 @@ from ..config import Config, instantiate, select
 from .pylogger import RankedLogger
 
 log = RankedLogger(__name__, rank_zero_only=True)
+
+
+# the nodes of a model config that are networks: ``net`` (the UNet tasks) or
+# the three networks of the shared-encoder multitask tasks
+_NET_NODES = ("net", "encoder", "flow_decoder", "seg_decoder")
+
+
+def instantiate_task(model_cfg: Config, device: Any = None):
+    """The task of ``model_cfg`` with each of its networks built on ``device``
+    (``None``: the CUDA card); the config's own network nodes are not built."""
+    nets = {key: instantiate(model_cfg[key], device=device) for key in _NET_NODES if model_cfg.get(key) is not None}
+    return instantiate(model_cfg, device=device, **nets)
 
 
 def _instantiate_group(group_cfg, what: str) -> list:
@@ -146,6 +159,7 @@ def log_hyperparameters(object_dict: dict) -> None:
 
 
 __all__ = [
+    "instantiate_task",
     "instantiate_callbacks",
     "instantiate_loggers",
     "enforce_tags",

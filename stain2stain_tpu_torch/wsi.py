@@ -90,16 +90,22 @@ def translate_large_image(
     return (out / wsum)[:h, :w]
 
 
+def _image(result):
+    """The translated image of a ``generate`` result (JAX ``wsi.py:121, :131``)."""
+    return result[0] if isinstance(result, tuple) else result
+
+
 def make_tiled_generator(task, num_steps: int) -> Callable[[np.ndarray], np.ndarray]:
     """``task.generate`` as a batched tile translator on numpy arrays.
 
     Each fixed-shape numpy batch moves to ``task.device``, runs through
-    ``generate`` and comes back as an f32 numpy array.
+    ``generate`` and comes back as an f32 numpy array. A multitask task's
+    ``(image, mask)`` comes back as the image.
     """
 
     def gen(batch: np.ndarray) -> np.ndarray:
         x = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(task.device)
-        return task.generate(x, num_steps=num_steps).to(torch.float32).cpu().numpy()
+        return _image(task.generate(x, num_steps=num_steps)).to(torch.float32).cpu().numpy()
 
     return gen
 
@@ -111,6 +117,6 @@ def make_conditioned_tiled_generator(task, num_steps: int) -> Callable[[np.ndarr
     def gen(batch: np.ndarray, target_class: int) -> np.ndarray:
         x = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(task.device)
         out = task.generate(x, num_steps=num_steps, target_class=int(target_class))
-        return out.to(torch.float32).cpu().numpy()
+        return _image(out).to(torch.float32).cpu().numpy()
 
     return gen

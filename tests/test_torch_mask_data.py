@@ -142,8 +142,11 @@ def test_synthetic_module_with_mask_matches_jax(tmp_path):
     for port_loader, jax_loader in ((dm.train_dataloader(), jdm.train_dataloader()),
                                     (dm.val_dataloader(), jdm.val_dataloader())):
         _assert_same_batches(port_loader, jax_loader)
-    with pytest.raises(NotImplementedError, match="multitask"):
-        SyntheticPairedDataModule(data_dir=str(tmp_path), with_mask=True, num_mask_classes=3)
+    # multiclass masks: the JAX package's directory and class-mask datamodule
+    multi = SyntheticPairedDataModule(data_dir=str(tmp_path / "port"), **kw, num_mask_classes=3)
+    jmulti = JaxSyntheticDataModule(data_dir=str(tmp_path / "jax"), **kw, num_mask_classes=3)
+    assert multi.data_dir.name == jmulti.data_dir.name == "s24_m3_n6-3-2_seed0"
+    assert multi.field_kinds == tuple(jmulti.field_kinds) == ("image", "image", "class_mask")
 
 
 # ------------------------------------------------------------ pos/neg data

@@ -136,9 +136,13 @@ def test_prepare_batch_converts_the_mask_as_jax():
         assert got[2].dtype == torch.float32 and tuple(got[2].shape) == (3, SIZE, SIZE, 1)
         for g, r in zip(got, ref):
             np.testing.assert_array_equal(g.numpy(), np.asarray(r))
-    task.batch_fields = ("image", "image", "class_mask")
-    with pytest.raises(NotImplementedError, match="multitask"):
-        task.prepare_batch(_uint8_batch(1))
+    # a class-mask field keeps its integer ids, (B, H, W), as JAX's does
+    task.batch_fields = jtask.batch_fields = ("image", "image", "class_mask")
+    batch = _uint8_batch(1)
+    got = task.prepare_batch(batch)
+    ref = jtask.prepare_batch(tuple(jnp.asarray(b) for b in batch), jax.random.key(0), train=False)
+    assert got[2].dtype == torch.int64 and tuple(got[2].shape) == (3, SIZE, SIZE)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
 
 
 def test_prepare_batch_crops_images_and_mask_together():
