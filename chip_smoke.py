@@ -142,10 +142,41 @@ Phases (any failure ends the script with a non-zero exit and no result line):
     statistics. No phase of 19–21 launches K1–K5 (the multitask nets have no
     attention; their convs are cuDNN's, as the JAX package's are XLA's): each
     records 0 launches of every kernel.
-22. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5, each with ``ms`` and
-    ``queued_ms``, and launches by path, the multitask paths' included), the
-    seconds of every phase, the card line, and ``{"ok": true, "device": ...}``
-    as the last line.
+22. ``train-wandb``: phase 7's path (the flagship, batch 32, 256 px,
+    bf16-mixed) under ``logger=wandb logger.wandb.name=chip-smoke`` with no
+    wandb client and ``WANDB_CACHE_DIR`` in the work directory, cut to 4
+    steps: the logger's JSONL holds the step metrics and a
+    ``model_artifact`` record with its ``artifact_ref``, and the cache holds
+    the best checkpoint byte for byte; K1-fwd and K1-bwd (bf16) as in phase 7,
+    one K1-bwd a step.
+23. ``train-resume``: the same overrides with
+    ``ckpt_path=wandb-artifact://stain2stain/model-chip-smoke:latest``,
+    ``trainer.max_epochs=2`` and ``+trainer.profiler=advanced``:
+    ``global_step`` goes on from 4 to 8, the first resumed step starts from
+    the checkpoint's weights bit for bit, and the Chrome trace the trainer
+    writes under ``<default_root_dir>/profile`` names the K1-fwd and K1-bwd
+    kernels as many times as their launch counters counted over the profiled
+    window; the median step with and without the profiler.
+24. ``serve-mask-bound`` (run after phase 16's ``infer_conditional``, on its
+    trained net): the mask-conditioned task behind
+    ``TranslationServer(task, …, mask=zeros)`` (1000×900 region, batch 16,
+    256-px tiles, K1-fwd f32 six times per velocity evaluation): the request's
+    latency, the served image against ``translate_large_image`` over
+    ``task.generate(x, mask=zeros)`` within 1e-6, a ones mask another image.
+25. ``mnist-sweep``: ``-m hparams_search=mnist_optuna experiment=example
+    trainer.accelerator=gpu`` through the training entry point on the
+    synthetic digits (the config's 20 trials of 10 epochs unless
+    ``MNIST_SWEEP_CUT`` says otherwise), journaled: every trial recorded, each
+    trial's ``val/acc_best`` the running max of ``val/acc``, the best value
+    and its parameters; K1–K5 never launch.
+26. ``dropout-bits``: ``FastDropout(0.1, impl="bits")`` on a (32, 128, 256,
+    256) bf16 tensor on the card: values {0, 1/(1-rate)}, the keep fraction
+    within 5σ of 0.9, the backward's mask the forward's, the same mask from
+    the same generator state; its time beside ``hash_dropout``'s.
+27. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5, each with ``ms`` and
+    ``queued_ms``, and launches by path, the multitask paths' and phases
+    22–25's included), the seconds of every phase, the card line, and
+    ``{"ok": true, "device": ...}`` as the last line.
 
 With ``--profile`` it also profiles a tile batch and a request, and a train
 step of each path (``phase_profile_train``), the binary multitask study's
@@ -157,11 +188,13 @@ the port's package is not beside it.
 
 from __future__ import annotations
 
+import csv
 import gc
 import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -171,6 +204,7 @@ import time
 import traceback
 import urllib.request
 from pathlib import Path
+from typing import Optional
 
 REPO = Path(__file__).resolve().parent
 
@@ -220,6 +254,14 @@ FUSED_GRAD_REL_TOL = 3e-2
 FUSED_EVAL_REL_TOL = 3e-2
 FUSED_OVERRIDE = "+model.net.fused_conv=true"
 FLAGSHIP_FUSED_CONVS = 44  # 22 ResBlocks x 2 fused convs per net forward
+# the server with a bound mask against translate_large_image over task.generate(x, mask) on the same card: the same
+# kernels on the same inputs in the same order, so the same floats up to the PNG decode's float32 round trip
+BOUND_MASK_TOL = 1e-6
+# the template's sweep (configs/hparams_search/mnist_optuna.yaml: 20 trials of experiment=example, 10 epochs) on the
+# synthetic digits, through the entry point; the config tree is not printed (once a trial, 20 times)
+MNIST_SWEEP = ["-m", "hparams_search=mnist_optuna", "experiment=example", "trainer.accelerator=gpu",
+               "extras.print_config=false"]
+MNIST_SWEEP_CUT: list = []  # the config's full study
 
 
 def log(msg: str) -> None:
@@ -969,8 +1011,10 @@ ANY2ANY_OVERRIDES = [
 ANY2ANY_TILES = 320  # val_split 0.2: 256 training tiles (8 steps of 32), 64 val tiles
 # the reference's mask studies (configs/experiment/he2ihc_masked_*.yaml,
 # he2ihc_pos_neg_amyloid.yaml: f32, 512 px, batch 8 a device) on one card
-# (their 4-device DDP cut to trainer.devices=1; W&B is not a logger of the
-# port, so the csv logger runs) and on synthetic tiles through the
+# (their 4-device DDP cut to trainer.devices=1; they only fill in
+# logger.wandb fields, which the default logger group leaves without a
+# _target_, so the csv logger runs: phase 22 drives the W&B logger) and on
+# synthetic tiles through the
 # experiments' own CSV datamodules; one epoch, so the best checkpoint is
 # taken every epoch (the experiments take it every 10 of 50)
 MASK_COMMON = ["trainer.accelerator=gpu", "trainer.devices=1", "trainer.min_epochs=1", "trainer.max_epochs=1",
@@ -983,12 +1027,18 @@ POS_NEG_TILES = dict(n_pos_train=24, n_neg=8, n_val=8, n_test=8)  # 32 draws: 4 
 SHORT = ["trainer.limit_train_batches=4", "trainer.limit_val_batches=1", "trainer.limit_test_batches=1"]
 # the reference's multitask studies on one card (configs/experiment/multitask_he2ihc_amyloid.yaml: f32, 512 px,
 # batch 32 a device; gray_matter/multitask_he2ihc_gray_matter.yaml: f32, 256 px, batch 32, 2 classes), with the
-# mask studies' cuts (4-device DDP to trainer.devices=1, W&B to csv, one epoch with its best checkpoint), under
+# mask studies' cuts (4-device DDP to trainer.devices=1, the csv logger, one epoch with its best checkpoint), under
 # the reference's BatchNorm (the configs' default is GroupNorm, which phase 21 drives); the binary study's batch
 # 32 cut to 16 for one card (its encoder runs on 2B images)
 BATCH_NORM = ["+model.encoder.norm=batch", "+model.flow_decoder.norm=batch", "+model.seg_decoder.norm=batch"]
 MULTITASK_BATCH = 16
 MULTICLASS_TILES = (256, 32, 32)  # train / val / test 256-px tiles with 2-class masks: 8 steps of 32
+# phase 7's flagship operating point under the reference's default logger (W&B: its JSONL and the checkpoint
+# mirrored into $WANDB_CACHE_DIR without the client), cut to 4 steps; then resumed from the logged model for
+# 4 more under the profiler
+WANDB_RUN = "chip-smoke"
+WANDB_OVERRIDES = TRAIN_OVERRIDES + ["logger=wandb", f"logger.wandb.name={WANDB_RUN}", "trainer.limit_train_batches=4"]
+WANDB_REF = f"stain2stain/model-{WANDB_RUN}:latest"
 # each training path: its overrides (``<data>`` stands for its data folder) and the folder of its synthetic data
 TRAIN_PATHS = {
     "train": (TRAIN_OVERRIDES, "data"),
@@ -1007,14 +1057,17 @@ TRAIN_PATHS = {
                         + BATCH_NORM, "data-mask"),
     "train-multitask-multiclass": (["experiment=gray_matter/multitask_he2ihc_gray_matter",
                                     "data.target_column=ihc_filepath"] + MASK_COMMON + BATCH_NORM, "data-multiclass"),
+    "train-wandb": (WANDB_OVERRIDES, "data"),
+    "train-resume": (WANDB_OVERRIDES + [f"ckpt_path=wandb-artifact://{WANDB_REF}", "trainer.max_epochs=2",
+                                        "+trainer.profiler=advanced"], "data"),
 }
 MULTITASK_PATHS = ("train-multitask", "train-multitask-multiclass")  # the shared-encoder nets: no attention
 F32_PATHS = ("train-f32", "train-remat", "train-any2any", "train-masked-conditioned", "train-masked", "train-roi",
              "train-pos-neg") + MULTITASK_PATHS
-PATH_STEPS = {"train-masked": 4, "train-roi": 4, "train-pos-neg": 4}  # 8 otherwise
+PATH_STEPS = {"train-masked": 4, "train-roi": 4, "train-pos-neg": 4, "train-wandb": 4, "train-resume": 4}  # 8 otherwise
 
 
-def phase_train(card: str, work: Path, name: str = "train") -> tuple[dict, dict]:
+def phase_train(card: str, work: Path, name: str = "train", callbacks: Optional[dict] = None) -> tuple[dict, dict]:
     """A training path of ``TRAIN_PATHS`` at full width through
     ``stain2stain_tpu_torch.train``: ``train`` (bf16-mixed, 256 px, batch 32),
     ``train-fused`` (the same with ``+model.net.fused_conv=true``: the
@@ -1028,9 +1081,12 @@ def phase_train(card: str, work: Path, name: str = "train") -> tuple[dict, dict]
     ``train-masked``, ``train-roi`` and ``train-pos-neg`` (the plain net,
     4 steps), and the multitask studies under BatchNorm:
     ``train-multitask`` (f32, 512 px, batch 16, binary) and
-    ``train-multitask-multiclass`` (f32, 256 px, batch 32, 2 classes). The
+    ``train-multitask-multiclass`` (f32, 256 px, batch 32, 2 classes), and
+    ``train-wandb`` and ``train-resume`` (``train`` under the W&B logger, 4
+    steps, then 4 more from its logged model under the profiler). The
     synthetic data under ``work`` of the first paths is made once per folder
-    and reused. K1-fwd must launch once per attention layer of each net
+    and reused. ``callbacks``: more callback configs, ahead of the step
+    clock. K1-fwd must launch once per attention layer of each net
     forward (and of each recompute under level remat), K1-bwd once per
     attention layer a step: on the multitask nets, which have none, never.
     Returns (summary, the objects ``train`` built)."""
@@ -1051,6 +1107,8 @@ def phase_train(card: str, work: Path, name: str = "train") -> tuple[dict, dict]
     cfg["extras"]["print_config"] = False
     log(f"{name}: " + " ".join(overrides))
 
+    for key, callback in (callbacks or {}).items():
+        cfg["callbacks"][key] = callback
     cfg["callbacks"]["step_clock"] = {"_target_": f"{__name__}.step_clock"}  # as a script or imported
     torch.cuda.reset_peak_memory_stats()
     # ---- the main path: counts zeroed just before, read just after --------
@@ -1790,9 +1848,10 @@ def phase_mask_grad_parity() -> dict:
 
 
 def mask_phases(card: str, work: Path, timed=lambda label, fn, *args: fn(*args)) -> dict:
-    """Phases 16–18 in a row, their data under ``work``: the mask trees,
-    ``train-masked-conditioned`` and ``phase_infer_conditional`` on its
-    task, the three short paths, ``phase_mask_grad_parity``. ``timed(label,
+    """Phases 16–18 and 24 in a row, their data under ``work``: the mask
+    trees, ``train-masked-conditioned``, ``phase_infer_conditional`` and
+    ``phase_serve_mask_bound`` on its task, the three short paths,
+    ``phase_mask_grad_parity``. ``timed(label,
     fn, *args)`` runs each phase (``main`` records its seconds)."""
     import torch
 
@@ -1810,6 +1869,7 @@ def mask_phases(card: str, work: Path, timed=lambda label, fn, *args: fn(*args))
     timed("mask-data", make_mask_data, work)
     cond_summary, cond_objects = timed("train-masked-conditioned", phase_train, card, work, "train-masked-conditioned")
     infer_cond = timed("infer-conditional", phase_infer_conditional, card, work, cond_summary, cond_objects["model"])
+    serve_bound = timed("serve-mask-bound", phase_serve_mask_bound, card, cond_objects["model"])
     del cond_objects
     gc.collect()
     torch.cuda.empty_cache()
@@ -1819,8 +1879,8 @@ def mask_phases(card: str, work: Path, timed=lambda label, fn, *args: fn(*args))
         gc.collect()
         torch.cuda.empty_cache()
     grad = timed("mask-grad-parity", phase_mask_grad_parity)
-    return {"train-masked-conditioned": cond_summary, "infer-conditional": infer_cond, "short": short,
-            "mask-grad-parity": grad}
+    return {"train-masked-conditioned": cond_summary, "infer-conditional": infer_cond,
+            "serve-mask-bound": serve_bound, "short": short, "mask-grad-parity": grad}
 
 
 def zero_kernel_launches() -> None:
@@ -1853,11 +1913,12 @@ def make_multiclass_data(work: Path) -> None:
                             with_mask=True, num_mask_classes=2)
 
 
-def _serve_one_request(task, img) -> dict:
+def _serve_one_request(task, img, **gen_kwargs) -> dict:
     """``task`` behind ``TranslationServer`` (tile 256, overlap 32, batch 16,
-    its ``generate`` with 2 steps) over HTTP on 127.0.0.1: one PNG request of
-    ``img``; the response, its time, and from the warm-up on the net's forward
-    passes (a multitask net's encoder passes) and every kernel's launches."""
+    its ``generate`` with 2 steps and ``gen_kwargs`` bound) over HTTP on
+    127.0.0.1: one PNG request of ``img``; the response, its time, the
+    server, and from the warm-up on the net's forward passes (a multitask
+    net's encoder passes) and every kernel's launches."""
     import numpy as np
     from PIL import Image
 
@@ -1870,7 +1931,7 @@ def _serve_one_request(task, img) -> dict:
     # ---- the main path: counts zeroed just before, read just after --------
     zero_kernel_launches()
     t0 = time.perf_counter()
-    server = TranslationServer(task, num_steps=2, tile=256, overlap=32, batch=16)
+    server = TranslationServer(task, num_steps=2, tile=256, overlap=32, batch=16, **gen_kwargs)
     warm_s = time.perf_counter() - t0
     ready = threading.Event()
     thread = threading.Thread(target=serve_forever, args=(server, "127.0.0.1", 0, ready), daemon=True)
@@ -1896,7 +1957,7 @@ def _serve_one_request(task, img) -> dict:
     served = np.asarray(Image.open(io.BytesIO(payload)).convert("RGB"))
     tiles = len(tile_starts(img.shape[0], 256, 224)) * len(tile_starts(img.shape[1], 256, 224))
     return dict(status=status, latency_s=latency, tiles=tiles, tiles_per_s=tiles / latency, warmup_s=warm_s,
-                net_passes=passes[0], launches=launches, shape=list(served.shape),
+                net_passes=passes[0], launches=launches, shape=list(served.shape), server=server,
                 mean_abs_change=float(np.abs(served.astype(np.float32) - img).mean()))
 
 
@@ -1954,6 +2015,7 @@ def phase_infer_multitask(card: str, work: Path, name: str, summary: dict, task,
     serve_task = type(task)(net=task.net, solver=SolverConfig("euler"), time_emb_dim=task.time_emb_dim)
     img = _test_image(1000, 900, seed=1000 * 900)
     request = dict(_serve_one_request(serve_task, img), card=card)
+    del request["server"]
     out["serve"] = request
     log("serve-multitask-request " + json.dumps(request))
     if request["status"] != 200 or request["shape"] != list(img.shape) or any(request["launches"].values()):
@@ -2093,6 +2155,273 @@ def multitask_phases(card: str, work: Path, timed=lambda label, fn, *args: fn(*a
         gc.collect()
         torch.cuda.empty_cache()
     out["multitask-grad-parity"] = timed("multitask-grad-parity", phase_multitask_grad_parity)
+    return out
+
+
+# A tracking service's client (wandb) may be installed where there is no network and no API key: the loggers'
+# client branch would then try to log in (and the client's error reporting to reach its server). So the phases
+# that run logger=wandb make the clients unimportable in this process: the loggers take their local path, as
+# where no client is installed, and ckpt_path=wandb-artifact:// reads their local cache.
+TRACKING_CLIENTS = ("wandb", "mlflow", "neptune", "comet_ml", "aim")
+
+
+def block_tracking_clients() -> None:
+    """``import <client>`` raises ImportError from now on in this process."""
+    for name in TRACKING_CLIENTS:
+        sys.modules[name] = None
+
+
+def resume_probe(expected: str):
+    """A training callback (built from the config by ``_target_``) for a run
+    resumed from the checkpoint directory ``expected``: every kernel's launch
+    count when the fit loop starts and when it ends (the profiled window lies
+    between), and whether the weights the first resumed step starts from
+    equal the checkpoint's, bit for bit (read when the callback is built,
+    before the run logs a model of its own under the same reference)."""
+    import torch
+
+    from stain2stain_tpu_torch.training import Callback
+
+    class ResumeProbe(Callback):
+        def __init__(self):
+            self.expected = torch.load(Path(expected) / "state.pt", map_location="cpu", weights_only=True)["model"]
+            self.fit_start = self.fit_end = self.weights_equal = None
+
+        def on_fit_start(self, trainer, task):
+            self.fit_start = kernel_launches()
+
+        def on_train_epoch_start(self, trainer, task):
+            if self.weights_equal is None:
+                got = task.net.state_dict()
+                self.weights_equal = set(got) == set(self.expected) and all(
+                    torch.equal(got[k].cpu(), v) for k, v in self.expected.items())
+                self.expected = None
+
+        def on_fit_end(self, trainer, task):
+            self.fit_end = kernel_launches()
+
+    return ResumeProbe()
+
+
+def _artifact_cache(work: Path) -> Path:
+    """Where ``WandbLogger.log_model`` mirrors ``WANDB_REF`` (``$WANDB_CACHE_DIR`` under ``work``)."""
+    return work / "wandb_artifacts" / WANDB_REF.replace("/", "_").replace(":", "_")
+
+
+def phase_train_wandb(card: str, work: Path) -> dict:
+    """``train-wandb``: phase 7's flagship path (bf16-mixed, 256 px, batch 32)
+    under ``logger=wandb`` with no wandb client (:func:`block_tracking_clients`),
+    ``WANDB_CACHE_DIR`` in ``work``, 4 steps: the logger's JSONL holds the step metrics and a
+    ``model_artifact`` record of the best checkpoint with its
+    ``artifact_ref``, and the cache holds that checkpoint, byte for byte."""
+    import filecmp
+
+    block_tracking_clients()
+    os.environ["WANDB_CACHE_DIR"] = str(work / "wandb_artifacts")
+    summary, _ = phase_train(card, work, "train-wandb")
+    records = [json.loads(line) for line in (work / "out-train-wandb" / "wandb" / "metrics.jsonl").read_text()
+               .splitlines()]
+    artifacts = [r for r in records if "model_artifact" in r]
+    cache = _artifact_cache(work)
+    cached = all((cache / f).is_file() for f in ("state.pt", "meta.json")) and all(
+        filecmp.cmp(cache / f, Path(summary["best_path"]) / f, shallow=False) for f in ("state.pt", "meta.json"))
+    out = dict(card=card, step_ms_median_2_4=summary["step_ms_median_3_8"], global_step=summary["global_step"],
+               k1_fwd_launches=summary["k1_fwd_launches"], k1_bwd_launches=summary["k1_bwd_launches"],
+               jsonl_records=len(records), metric_keys=sorted({k for r in records if "step" in r for k in r}),
+               artifacts=artifacts, cache=str(cache.relative_to(work)), cache_equals_best=cached)
+    log("train-wandb-logger " + json.dumps(out))
+    if (summary["global_step"] != 4 or not any("train/loss" in r for r in records)
+            or not any("val/loss" in r for r in records) or not artifacts
+            or artifacts[-1]["artifact_ref"] != WANDB_REF or artifacts[-1]["model_artifact"] != summary["best_path"]
+            or not cached):
+        raise AssertionError(f"the wandb logger did not record the run or mirror its checkpoint: {out}")
+    return {**summary, "logger": out}
+
+
+def phase_train_resume(card: str, work: Path, wandb_summary: dict) -> dict:
+    """``train-resume``: ``train-wandb``'s overrides with
+    ``ckpt_path=wandb-artifact://<ref>``, ``trainer.max_epochs=2`` and
+    ``+trainer.profiler=advanced``: ``global_step`` goes on from 4 to 8, the
+    first resumed step starts from the cached checkpoint's weights bit for
+    bit, and the trainer's Chrome trace under ``<default_root_dir>/profile``
+    names the K1-fwd and K1-bwd kernels as often as their launch counters
+    counted them over the profiled window (K1-bwd's bf16 route: one dq
+    kernel a call). The median step against ``train-wandb``'s: the
+    profiler's cost."""
+    block_tracking_clients()
+    probe_cfg = {"resume_probe": {"_target_": f"{__name__}.resume_probe", "expected": str(_artifact_cache(work))}}
+    summary, objects = phase_train(card, work, "train-resume", probe_cfg)
+    probe = next(cb for cb in objects["callbacks"] if type(cb).__name__ == "ResumeProbe")
+    window = {k: probe.fit_end[k] - probe.fit_start[k] for k in probe.fit_end}
+    traces = sorted((work / "out-train-resume" / "profile").glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"the profiler wrote {len(traces)} traces, not one: {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    traced = {"K1-fwd": sum("attention_fwd" in n for n in kernels), "K1-bwd": sum("attention_bwd_dq" in n for n in kernels)}
+    names = sorted({m.group(0) for n in kernels for m in [re.search(r"attention_\w+", n)] if m})
+    no_profiler, profiled = wandb_summary["step_ms_median_3_8"], summary["step_ms_median_3_8"]
+    out = dict(card=card, global_step=summary["global_step"], weights_equal=probe.weights_equal,
+               trace=str(traces[0].relative_to(work)), trace_mb=traces[0].stat().st_size / 2**20,
+               trace_kernel_events=len(kernels), traced=traced, launches_in_window=window, attention_kernels=names,
+               step_ms_median_2_4=profiled, step_ms_without_profiler=no_profiler,
+               profiler_cost_ms=profiled - no_profiler, profiler_cost_share=profiled / no_profiler - 1.0,
+               step_ms=summary["step_ms"])
+    log("train-resume-profile " + json.dumps(out))
+    if (summary["global_step"] != 8 or objects["trainer"].current_epoch != 1 or probe.weights_equal is not True
+            or window["K1-bwd"] == 0 or traced != {k: window[k] for k in traced}):
+        raise AssertionError(f"the resumed run did not go on from the logged model, or its trace does not show "
+                             f"the kernels the counters counted: {out}")
+    return {**summary, "profile": out}
+
+
+def phase_serve_mask_bound(card: str, trained) -> dict:
+    """``serve-mask-bound``: the mask-conditioned task on phase 16's trained
+    net (euler, 2 steps) behind ``TranslationServer(task, …, mask=zeros)``
+    (tile 256, overlap 32, batch 16): one HTTP request on phase 5's 1000×900
+    region (K1-fwd f32 six times per velocity evaluation, the request's
+    latency), then ``server.translate`` against ``translate_large_image``
+    driven by ``task.generate(x, mask=zeros)`` directly, within
+    ``BOUND_MASK_TOL``; a ones mask gives another image."""
+    import numpy as np
+    import torch
+
+    from stain2stain_tpu_torch.models.unet import AttentionBlock
+    from stain2stain_tpu_torch.ops.image import denormalize_np, normalize_uint8_np
+    from stain2stain_tpu_torch.ops.solvers import SolverConfig
+    from stain2stain_tpu_torch.tasks import MaskConditionedFlowMatchingModule
+    from stain2stain_tpu_torch.wsi import translate_large_image
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # torch's defaults for inference
+    torch.backends.cudnn.allow_tf32 = True
+    task = MaskConditionedFlowMatchingModule(net=trained.net, solver=SolverConfig("euler"))
+    attention = sum(isinstance(m, AttentionBlock) for m in task.net.modules())
+    img = _test_image(1000, 900, seed=1000 * 900)
+    served = _serve_one_request(task, img, mask=np.zeros((16, 256, 256, 1), np.float32))
+    server = served.pop("server")
+    got = server.translate(img)
+
+    def direct(value: float):
+        mask = torch.full((16, 256, 256, 1), value, device=task.device)
+
+        def gen(batch):
+            x = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(task.device)
+            return task.generate(x, num_steps=2, mask=mask).float().cpu().numpy()
+
+        return gen
+
+    normalized = normalize_uint8_np(img)
+    ref, ones = (denormalize_np(translate_large_image(direct(v), normalized, tile=256, overlap=32, batch_size=16))
+                 for v in (0.0, 1.0))
+    launches, passes = served["launches"]["K1-fwd"], served["net_passes"]
+    out = dict(card=card, status=served["status"], latency_s=served["latency_s"], tiles=served["tiles"],
+               tiles_per_s=served["tiles_per_s"], warmup_s=served["warmup_s"], velocity_evals=passes,
+               k1_launches=launches, attention_layers=attention, max_abs_err_vs_direct=float(np.abs(got - ref).max()),
+               tol=BOUND_MASK_TOL, ones_mask_mean_abs_diff=float(np.abs(ones - ref).mean()),
+               other_launches={k: v for k, v in served["launches"].items() if k != "K1-fwd"})
+    log("serve-mask-bound " + json.dumps(out))
+    if (out["status"] != 200 or served["shape"] != list(img.shape) or attention != 6 or launches == 0
+            or launches != attention * passes or any(out["other_launches"].values())
+            or not out["max_abs_err_vs_direct"] <= BOUND_MASK_TOL or not out["ones_mask_mean_abs_diff"] > 0.0):
+        raise AssertionError(f"the server with a bound mask served wrongly: {out}")
+    return out
+
+
+def phase_mnist_sweep(card: str, work: Path) -> dict:
+    """``mnist-sweep``: ``python -m stain2stain_tpu_torch.train -m
+    hparams_search=mnist_optuna experiment=example trainer.accelerator=gpu``
+    through the entry point's ``main`` on the synthetic digits, the study
+    journaled under ``work`` (with ``MNIST_SWEEP_CUT``): the journal holds
+    every trial with a finite value, each trial's CSV log holds
+    ``val/acc_best`` as the running max of ``val/acc`` after every epoch and
+    its last value is the trial's value; the best value and its parameters.
+    K1–K5 launch 0 times."""
+    import torch
+
+    from stain2stain_tpu_torch import train as train_cli
+    from stain2stain_tpu_torch.config import compose
+
+    journal = work / "mnist-study.jsonl"
+    argv = MNIST_SWEEP + MNIST_SWEEP_CUT + [f"paths.log_dir={work / 'mnist-logs'}",
+                                            f"paths.data_dir={work / 'mnist-data'}", f"+sweeper.storage={journal}"]
+    cfg = compose(REPO / "configs", "train.yaml", argv[1:])
+    n_trials, epochs = int(cfg["sweeper"]["n_trials"]), int(cfg["trainer"]["max_epochs"])
+    log(f"mnist-sweep: {' '.join(argv)} ({n_trials} trials of {epochs} epochs; cut from the config's study: "
+        f"{MNIST_SWEEP_CUT or 'none'})")
+    # ---- the main path: counts zeroed just before, read just after --------
+    zero_kernel_launches()
+    t0 = time.perf_counter()
+    results = train_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_launches()
+    # ---- end of the main path ---------------------------------------------
+    records = [json.loads(line) for line in journal.read_text().splitlines()]
+    logs = sorted((work / "mnist-logs").rglob("metrics.csv"), key=lambda p: int(p.parent.name.split("_")[-1]))
+    running_max, last_best, val_rows = [], [], []
+    for path in logs:
+        with open(path, newline="") as f:
+            rows = list(csv.DictReader(f))
+        acc = [float(r["val/acc"]) for r in rows if r.get("val/acc")]
+        best = [float(r["val/acc_best"]) for r in rows if r.get("val/acc_best")]
+        running_max.append(best == [max(acc[: i + 1]) for i in range(len(acc))])
+        last_best.append(best[-1] if best else None)
+        val_rows.append(len(acc))
+    best_record = max((r for r in records if r["value"] is not None), key=lambda r: r["value"], default=None)
+    out = dict(card=card, seconds=seconds, trials=len(records), n_trials=n_trials, epochs=epochs,
+               cut=MNIST_SWEEP_CUT, result=results, best=best_record, values=[r["value"] for r in records],
+               validations_per_trial=val_rows, launches=launches)
+    log("mnist-sweep " + json.dumps(out))
+    if (results is None or len(results) != 1 or results[0] is None or best_record is None
+            or results[0] != best_record["value"] or len(records) != n_trials
+            or not all(r["value"] is not None and math.isfinite(r["value"]) for r in records)
+            or len(logs) != n_trials or not all(running_max) or val_rows != [epochs] * n_trials
+            or last_best != [r["value"] for r in records] or any(launches.values())):
+        raise AssertionError(f"the MNIST study did not run every trial, log val/acc_best as the running max, or "
+                             f"stayed off K1-K5: {out}")
+    return out
+
+
+def phase_dropout_bits(card: str) -> dict:
+    """``dropout-bits``: ``FastDropout(0.1, impl="bits")`` on a (32, 128,
+    256, 256) bf16 tensor on the card, backward with dy = 1 (so ``x.grad`` is
+    the backward's mask): the mask's values are {0, bf16(1/0.9)}, its keep
+    fraction within 5σ of 0.9, y = x · mask bit for bit (the forward's mask
+    is the backward's), and the same generator state gives the same output.
+    Times of the forward beside ``hash_dropout``'s on the same tensor."""
+    import torch
+
+    from stain2stain_tpu_torch.ops.dropout import FastDropout, draw_seed, hardware_dropout, hash_dropout
+
+    rate = 0.1
+    x = torch.randn(32, 128, 256, 256, device="cuda", generator=torch.Generator("cuda").manual_seed(0),
+                    dtype=torch.bfloat16).requires_grad_()
+    drop = FastDropout(rate, impl="bits").train()
+    y = drop(x, torch.Generator().manual_seed(11))
+    y.backward(torch.ones_like(y))
+    mask = x.grad
+    values = sorted(torch.unique(mask.float()).tolist())
+    scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.bfloat16).item()
+    n = mask.numel()
+    kept = float((mask != 0).double().mean())
+    sigma = math.sqrt(rate * (1 - rate) / n)
+    same_mask = torch.equal(y, x.detach() * mask)
+    again = torch.equal(y, drop(x.detach(), torch.Generator().manual_seed(11)))
+    other = not torch.equal(y, drop(x.detach(), torch.Generator().manual_seed(12)))
+    seed = draw_seed(torch.Generator().manual_seed(11))
+    xd = x.detach()
+    del y, mask
+    x.grad = None
+    with torch.no_grad():
+        bits_ms = cuda_ms(lambda: hardware_dropout(xd, seed, rate), repeats=10)
+        hash_ms = cuda_ms(lambda: hash_dropout(xd, seed, rate), repeats=10)
+    out = dict(card=card, shape=list(x.shape), dtype="bfloat16", rate=rate, values=values, scale=scale,
+               keep_fraction=kept, sigma=sigma, keep_dev_sigmas=abs(kept - (1 - rate)) / sigma,
+               forward_mask_is_backward_mask=same_mask, same_generator_same_mask=again,
+               other_generator_other_mask=other, bits_ms=bits_ms, hash_ms=hash_ms)
+    log("dropout-bits " + json.dumps(out))
+    if (values != [0.0, scale] or abs(kept - (1 - rate)) > 5 * sigma or not (same_mask and again and other)):
+        raise AssertionError(f"the bits dropout mask is wrong: {out}")
     return out
 
 
@@ -2440,8 +2769,27 @@ def main() -> int:
                 gc.collect()
                 torch.cuda.empty_cache()
                 phase_profile_train(card, name)
+
+        # 22-23. phase 7's path under the W&B logger, then resumed from its logged model under the profiler
+        gc.collect()
+        torch.cuda.empty_cache()
+        wandb_summary = timed("train-wandb", phase_train_wandb, card, work)
+        gc.collect()
+        torch.cuda.empty_cache()
+        resume_summary = timed("train-resume", phase_train_resume, card, work, wandb_summary)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 25. the template's MNIST sweep through the entry point (24 ran with the mask phases)
+        sweep = timed("mnist-sweep", phase_mnist_sweep, card, work)
+
+    # 26. FastDropout(impl="bits") on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    bits = timed("dropout-bits", phase_dropout_bits, card)
     torch.cuda.empty_cache()
     cond_summary, infer_cond, mask_paths = masks["train-masked-conditioned"], masks["infer-conditional"], masks["short"]
+    serve_bound = masks["serve-mask-bound"]
     (mt_summary, mt_infer), (mc_summary, mc_infer) = (multitask[n] for n in MULTITASK_PATHS)
     log("phase-seconds " + json.dumps(seconds))
 
@@ -2457,7 +2805,20 @@ def main() -> int:
                             ("K3", "k3_launches"), ("K4", "k4_launches"), ("K5", "k5_launches"))
     }
 
-    # 22. result lines
+    # this slice's paths' launches of each kernel: K1-fwd and K1-bwd on the W&B and resumed runs, K1-fwd on the
+    # bound-mask server, none on the MNIST study
+    slice_launches = {
+        kernel: {"train_wandb": wandb_summary[key], "train_resume": resume_summary[key],
+                 "serve_mask_bound": (serve_bound["k1_launches"] if kernel == "K1-fwd"
+                                      else serve_bound["other_launches"][kernel]),
+                 "mnist_sweep": sweep["launches"][kernel]}
+        for kernel, key in (("K1-fwd", "k1_fwd_launches"), ("K1-bwd", "k1_bwd_launches"), ("K2", "k2_launches"),
+                            ("K3", "k3_launches"), ("K4", "k4_launches"), ("K5", "k5_launches"))
+    }
+    log("slice-11 " + json.dumps({"dropout_bits": {k: bits[k] for k in ("bits_ms", "hash_ms", "keep_fraction")},
+                                  "mnist_sweep_s": sweep["seconds"], "mnist_best": sweep["best"]}))
+
+    # 27. result lines
     def row(name, source, replaces, case, launches, by_path, passed):
         return {
             "name": name,
@@ -2497,7 +2858,8 @@ def main() -> int:
              "train_remat": remat_summary["k1_fwd_launches"], "train_fused_remat": fused_remat_summary["k1_fwd_launches"],
              "train_any2any": any2any_summary["k1_fwd_launches"], "serve_any2any": serve_any2any["k1_launches"],
              "train_masked_conditioned": cond_summary["k1_fwd_launches"], "serve_toggle": infer_cond["serve"]["k1_launches"],
-             **{n.replace("-", "_"): m["k1_fwd_launches"] for n, m in mask_paths.items()}, **mt_launches["K1-fwd"]},
+             **{n.replace("-", "_"): m["k1_fwd_launches"] for n, m in mask_paths.items()}, **mt_launches["K1-fwd"],
+             **slice_launches["K1-fwd"]},
             all(c["ok"] for c in k1["cases"]) and parity["ok"]),
         row("attention_bwd (K1-bwd)", "stain2stain_tpu_torch/csrc/attention_bwd.cu",
             "stain2stain_tpu/ops/pallas_attention.py:78", k1_bwd["cases"][0], train_summary["k1_bwd_launches"],
@@ -2506,11 +2868,13 @@ def main() -> int:
              "train_fused_remat": fused_remat_summary["k1_bwd_launches"],
              "train_any2any": any2any_summary["k1_bwd_launches"],
              "train_masked_conditioned": cond_summary["k1_bwd_launches"],
-             **{n.replace("-", "_"): m["k1_bwd_launches"] for n, m in mask_paths.items()}, **mt_launches["K1-bwd"]},
+             **{n.replace("-", "_"): m["k1_bwd_launches"] for n, m in mask_paths.items()}, **mt_launches["K1-bwd"],
+             **slice_launches["K1-bwd"]},
             all(c["ok"] for c in k1_bwd["cases"]) and grad["ok"] and masks["mask-grad-parity"]["ok"]),
     ] + [
         row(title, f"stain2stain_tpu_torch/csrc/{source}", replaces, convs["rows"][k][0], fused_summary[key],
-            {"train_fused": fused_summary[key], "train_fused_remat": fused_remat_summary[key], **mt_launches[k]},
+            {"train_fused": fused_summary[key], "train_fused_remat": fused_remat_summary[key], **mt_launches[k],
+             **slice_launches[k]},
             all(c["ok"] for c in convs["rows"][k]) and conv_ok)
         for k, (title, source, replaces, key) in conv_sources.items()
     ]

@@ -1,6 +1,7 @@
 """Weight conversion between the JAX package, reference checkpoints and the port."""
 
 from .multitask import multitask_state_dict_from_flax, segmentation_unet_state_dict_from_flax
+from .simple_dense_net import simple_dense_net_state_dict_from_flax
 from .unet import (
     frac_head_state_dict_from_flax,
     load_reference_checkpoint,
@@ -15,4 +16,5 @@ __all__ = [
     "frac_head_state_dict_from_flax",
     "multitask_state_dict_from_flax",
     "segmentation_unet_state_dict_from_flax",
+    "simple_dense_net_state_dict_from_flax",
 ]

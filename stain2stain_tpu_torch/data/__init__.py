@@ -3,6 +3,7 @@ host decode → device-side normalization and paired augmentation."""
 
 from .base import ConcatDataset, DataLoader, DataModule, Dataset, default_collate
 from .class_conditional import ClassConditionalAnyToAnyDataModule, PairedAnyToAnyDataset
+from .mnist_datamodule import ArrayDataset, MNISTDataModule
 from .paired_data_mask import PairedHEIHCDataModule, PairedHEIHCDataset, load_mask_binary
 from .paired_data_module import PairedDataModule, PairedDataset
 from .paired_data_multiclassmask import PairedMulticlassDataModule, PairedMulticlassDataset, load_class_mask
@@ -26,4 +27,6 @@ __all__ = [
     "PairedPosNegDataModule",
     "PairedAnyToAnyDataset",
     "ClassConditionalAnyToAnyDataModule",
+    "ArrayDataset",
+    "MNISTDataModule",
 ]

@@ -2,6 +2,7 @@
 
 from .segmentation_unet import SegmentationUNet
 from .shared_encoder import DoubleConv, SharedEncoder, TimeEmbedding
+from .simple_dense_net import SimpleDenseNet
 from .task_decoders import FlowMatchingDecoder, SegmentationDecoder, Up
 from .unet import UNetModel
 from .unet_4to3 import UNet4to3
@@ -16,4 +17,5 @@ __all__ = [
     "SegmentationDecoder",
     "Up",
     "SegmentationUNet",
+    "SimpleDenseNet",
 ]

@@ -16,10 +16,17 @@ the top bit flipped.
 :class:`FastDropout` (impl ``"hash"``) replaces ``nn.Dropout`` in the UNet.
 It has no parameters, so state-dict keys do not change. Its seed, one per
 layer per call, is drawn from the ``torch.Generator`` the caller passes (the
-trainer seeds one from (seed, step)); tests inject it. The JAX package's
-``"bits"`` impl (``hardware_dropout``) is not ported.
+trainer seeds one from (seed, step)); tests inject it.
 
-Plain PyTorch: XLA fused this mask without Pallas on the TPU.
+:func:`hardware_dropout` (impl ``"bits"``, JAX ``dropout.py:47-76``) keeps the
+elements whose 16-bit random word lies below JAX's integer threshold
+``min(2^16 - 1, round((1 - rate) · 2^16))``. The words come from a
+``torch.Generator`` on the tensor's device seeded with the layer's uint32
+seed, so its backward, too, regenerates the mask from the seed alone. torch's
+generator is not JAX's PRNG: the masks differ from JAX's draws (the keep
+probability and the scaling are the same).
+
+Plain PyTorch: XLA fused these masks without Pallas on the TPU.
 """
 
 from __future__ import annotations
@@ -77,15 +84,37 @@ def hash_mask(seed: int, shape, rate: float, dtype, device=None) -> torch.Tensor
     return keep.to(dtype) * (1.0 / (1.0 - rate))
 
 
-class _HashDropout(torch.autograd.Function):
+_BITS_SPAN = 1 << 16
+
+
+def bits_threshold(rate: float) -> int:
+    """The keep threshold of a 16-bit word (JAX ``_mask``, ``dropout.py:47-54``)."""
+    return min(_BITS_SPAN - 1, round((1.0 - rate) * _BITS_SPAN))
+
+
+def bits_mask(seed: int, shape, rate: float, dtype, device=None) -> torch.Tensor:
+    """iid Bernoulli(1-rate) keep mask from 16-bit random words drawn by a
+    generator on ``device`` seeded with ``seed``, pre-scaled by 1/(1-rate)."""
+    device = torch.device("cpu" if device is None else device)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    # the words held as int16: unsigned w < thresh  ⇔  signed (w − 2^15) < thresh − 2^15
+    words = torch.randint(-(2**15), 2**15, tuple(shape), dtype=torch.int16, device=device, generator=generator)
+    keep = words < bits_threshold(rate) - 2**15
+    return keep.to(dtype) * (1.0 / (1.0 - rate))
+
+
+class _SeededDropout(torch.autograd.Function):
+    """``x · make_mask(seed)``; the backward regenerates the mask from the
+    seed, so nothing but the seed is saved."""
+
     @staticmethod
-    def forward(ctx, x, seed: int, rate: float):
-        ctx.seed, ctx.rate = seed, rate
-        return x * hash_mask(seed, x.shape, rate, x.dtype, x.device)
+    def forward(ctx, x, make_mask, seed: int, rate: float):
+        ctx.make_mask, ctx.seed, ctx.rate = make_mask, seed, rate
+        return x * make_mask(seed, x.shape, rate, x.dtype, x.device)
 
     @staticmethod
     def backward(ctx, dy):
-        return dy * hash_mask(ctx.seed, dy.shape, ctx.rate, dy.dtype, dy.device), None, None
+        return dy * ctx.make_mask(ctx.seed, dy.shape, ctx.rate, dy.dtype, dy.device), None, None, None
 
 
 def hash_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
@@ -93,7 +122,14 @@ def hash_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     ``rate`` a float in (0, 1). The backward regenerates the mask from the seed."""
     if x.ndim != 4:
         raise ValueError(f"hash_dropout takes NCHW tensors, got shape {tuple(x.shape)}")
-    return _HashDropout.apply(x, int(seed) & 0xFFFFFFFF, float(rate))
+    return _SeededDropout.apply(x, hash_mask, int(seed) & 0xFFFFFFFF, float(rate))
+
+
+def hardware_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    """``x * mask / (1-rate)`` with the mask of :func:`bits_mask`, any shape;
+    ``seed`` is a uint32 (a Python int), ``rate`` a float in (0, 1). The
+    backward regenerates the mask from the seed."""
+    return _SeededDropout.apply(x, bits_mask, int(seed) & 0xFFFFFFFF, float(rate))
 
 
 def draw_seed(generator: Optional[torch.Generator] = None) -> int:
@@ -101,8 +137,12 @@ def draw_seed(generator: Optional[torch.Generator] = None) -> int:
     return int(torch.randint(0, 2**32, (1,), dtype=torch.int64, generator=generator))
 
 
+_IMPLS = {"hash": hash_dropout, "bits": hardware_dropout}
+
+
 class FastDropout(nn.Module):
-    """``nn.Dropout`` replacement backed by :func:`hash_dropout` (impl ``"hash"``).
+    """``nn.Dropout`` replacement backed by :func:`hash_dropout` (impl ``"hash"``,
+    the default) or :func:`hardware_dropout` (impl ``"bits"``).
 
     Active in training mode only. ``forward(x, generator)`` draws this call's
     seed from ``generator``; ``forward(x, seed=s)`` uses the seed ``s`` drawn
@@ -111,8 +151,8 @@ class FastDropout(nn.Module):
 
     def __init__(self, rate: float, impl: str = "hash"):
         super().__init__()
-        if impl != "hash":
-            raise NotImplementedError(f"FastDropout impl {impl!r} is not ported (only 'hash')")
+        if impl not in _IMPLS:
+            raise NotImplementedError(f"FastDropout impl {impl!r} is not ported (only {sorted(_IMPLS)})")
         self.rate = float(rate)
         self.impl = impl
 
@@ -127,10 +167,11 @@ class FastDropout(nn.Module):
             return x
         if self.rate >= 1.0:
             return torch.zeros_like(x)
-        return hash_dropout(x, draw_seed(generator) if seed is None else seed, self.rate)
+        return _IMPLS[self.impl](x, draw_seed(generator) if seed is None else seed, self.rate)
 
     def extra_repr(self) -> str:
         return f"rate={self.rate}, impl={self.impl!r}"
 
 
-__all__ = ["hash_dropout", "hash_mask", "hash_bits", "draw_seed", "FastDropout"]
+__all__ = ["hash_dropout", "hash_mask", "hash_bits", "hardware_dropout", "bits_mask", "bits_threshold", "draw_seed",
+           "FastDropout"]

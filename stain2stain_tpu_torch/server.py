@@ -17,7 +17,10 @@ Class conditioning (any2any) is a property of the model (``net.class_cond``):
 such a server translates to its default class (``target_class``, 0 if
 unset) or to the class a request asks for (``POST
 /translate?target_class=K``); a class given to an unconditioned model is
-refused (HTTP 400 for a request).
+refused (HTTP 400 for a request). Other conditions are fixed for the
+server's life and bound into the generator (``**gen_kwargs``, as JAX
+``server.py:67, :90-94``): ``mask=`` of the tile batch's shape,
+``(batch, tile, tile, 1)``, serves a mask-conditioned task.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ class TranslationServer:
         overlap: int = 32,
         batch: int = 16,
         target_class: Optional[int] = None,
+        **gen_kwargs,
     ):
         self.task = task
         self.num_steps = num_steps
@@ -69,9 +73,9 @@ class TranslationServer:
             raise ValueError("target_class given but the model is not class-conditioned")
         self.default_class = (0 if target_class is None else int(target_class)) if self.conditioned else None
         if self.conditioned:
-            self._cond_gen = make_conditioned_tiled_generator(task, num_steps=num_steps)
+            self._cond_gen = make_conditioned_tiled_generator(task, num_steps=num_steps, **gen_kwargs)
         else:
-            self._gen = make_tiled_generator(task, num_steps=num_steps)
+            self._gen = make_tiled_generator(task, num_steps=num_steps, **gen_kwargs)
         self._lock = threading.Lock()  # one request in flight on the card
         self.requests_served = 0
         self.httpd: Optional[ThreadingHTTPServer] = None

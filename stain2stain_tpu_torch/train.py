@@ -2,14 +2,17 @@
 
     python -m stain2stain_tpu_torch.train experiment=smoke_synthetic trainer=cpu
     python -m stain2stain_tpu_torch.train experiment=quality_synthetic_256 trainer.accelerator=gpu
+    python -m stain2stain_tpu_torch.train -m hparams_search=mnist_optuna experiment=example trainer=cpu
 
 Composes ``configs/train.yaml`` with the port's config code (the YAMLs'
 ``stain2stain_tpu.`` targets map onto this package), instantiates the
 datamodule, callbacks, loggers and Trainer, then the task with its net on the
 trainer's device, runs fit and, with ``test=true``, test on the best
-checkpoint. Trains on the CUDA card unless ``trainer=cpu``
+checkpoint. ``ckpt_path=wandb-artifact://<ref>`` resumes from a logged model
+(:func:`_resolve_ckpt_path`). Trains on the CUDA card unless ``trainer=cpu``
 (``trainer.accelerator=cpu``); an accelerator other than auto / gpu / cuda /
-cpu raises. Sweeps (``hparams_search``) are not ported yet.
+cpu raises. With ``hparams_search=…`` attached, :func:`sweep.run_study` runs
+the study, one training run a trial.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from pathlib import Path
 from typing import Optional
 
 from .config import Config, config_main, instantiate
+from .sweep import run_study
+from .training.loggers import artifact_cache_dir
 from .utils.pylogger import RankedLogger
 from .utils.seed import seed_everything
 from .utils.utils import (
@@ -34,6 +39,29 @@ from .utils.utils import (
 log = RankedLogger(__name__, rank_zero_only=True)
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
+
+
+def _resolve_ckpt_path(ckpt_path: Optional[str]) -> Optional[str]:
+    """A ``wandb-artifact://<ref>`` checkpoint as a local directory (JAX
+    ``src/train.py:37-62``): with the wandb client installed the artifact is
+    downloaded; without it, the copy ``WandbLogger.log_model`` left under
+    ``$WANDB_CACHE_DIR`` is used, and a missing one raises
+    ``FileNotFoundError``. Plain paths pass through."""
+    if not ckpt_path or not str(ckpt_path).startswith("wandb-artifact://"):
+        return ckpt_path
+    ref = str(ckpt_path)[len("wandb-artifact://"):]
+    try:
+        import wandb
+    except ImportError:
+        cache = artifact_cache_dir(ref)
+        if cache.exists():
+            log.info(f"Resolved wandb artifact from local cache: {cache}")
+            return str(cache)
+        raise FileNotFoundError(
+            f"ckpt_path '{ckpt_path}' is a wandb artifact but the wandb client is not "
+            f"installed and no local cache was found at {cache}."
+        ) from None
+    return str(Path(wandb.Api().artifact(ref).download()))
 
 
 @task_wrapper
@@ -73,7 +101,7 @@ def train(cfg: Config) -> tuple[dict, dict]:
         log.info("Logging hyperparameters!")
         log_hyperparameters(object_dict)
 
-    ckpt_path = cfg.get("ckpt_path")
+    ckpt_path = _resolve_ckpt_path(cfg.get("ckpt_path"))
     if cfg.get("train", True):
         log.info("Starting training!")
         trainer.fit(model, datamodule, ckpt_path=ckpt_path)
@@ -95,9 +123,9 @@ def train(cfg: Config) -> tuple[dict, dict]:
 
 @config_main(config_path="../configs", config_name="train.yaml")
 def main(cfg: Config) -> Optional[float]:
-    if cfg.get("sweeper"):
-        raise NotImplementedError("hyperparameter sweeps (hparams_search) are not ported yet")
     extras(cfg)
+    if cfg.get("sweeper"):
+        return run_study(cfg, lambda c: train(c)[0])
     metric_dict, _ = train(cfg)
     return get_metric_value(metric_dict, cfg.get("optimized_metric"))
 

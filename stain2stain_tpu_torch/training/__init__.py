@@ -12,7 +12,17 @@ from .callbacks import (
     RichModelSummary,
     RichProgressBar,
 )
-from .loggers import CSVLogger, FileLogger, Logger
+from .loggers import (
+    AimLogger,
+    CometLogger,
+    CSVLogger,
+    FileLogger,
+    Logger,
+    MLFlowLogger,
+    NeptuneLogger,
+    TensorBoardLogger,
+    WandbLogger,
+)
 from .optim import SGD, Adam, AdamW, ReduceLROnPlateau
 from .state import CheckpointIO, TrainState
 from .trainer import Trainer
@@ -33,6 +43,12 @@ __all__ = [
     "Logger",
     "CSVLogger",
     "FileLogger",
+    "TensorBoardLogger",
+    "WandbLogger",
+    "MLFlowLogger",
+    "NeptuneLogger",
+    "CometLogger",
+    "AimLogger",
     "Adam",
     "AdamW",
     "SGD",

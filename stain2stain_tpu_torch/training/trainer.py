@@ -10,7 +10,14 @@
   ``val_check_interval``), callbacks, loggers, ReduceLROnPlateau and early
   stopping;
 - checkpoints hold model, optimizer, scheduler and callback state, so resume
-  is exact.
+  is exact;
+- tasks that declare ``track_best`` get running best values of their
+  metrics after every validation (``val/acc_best`` for the MNIST sweep);
+- ``profiler``: ``"simple"`` prints the mean and median train step;
+  ``"jax"`` or ``"advanced"`` runs ``torch.profiler`` over the fit loop
+  (after the sanity validation, CUDA activity too on the card) and writes
+  a Chrome trace into ``<default_root_dir>/profile/``, the directory the
+  JAX trainer's trace goes to.
 
 Randomness: every train step draws from a ``torch.Generator`` seeded from
 (seed, step) — crop offsets, flips, the flow-matching ``t`` and the dropout
@@ -31,6 +38,7 @@ JAX dispatch and PRNG implementations.
 from __future__ import annotations
 
 import math
+import os
 import time
 from pathlib import Path
 from typing import Any, Optional, Sequence
@@ -276,6 +284,7 @@ class Trainer:
             self._run_eval(val_loader, prefix="val", max_batches=self.num_sanity_val_steps)
             self.sanity_checking = False
 
+        profiler = self._start_profiler()
         try:
             for epoch in range(start_epoch, self.max_epochs):
                 self.current_epoch = epoch
@@ -290,6 +299,7 @@ class Trainer:
                 ran_val = val_loader is not None and (epoch + 1) % self.check_val_every_n_epoch == 0
                 if ran_val:
                     self._run_eval(val_loader, prefix="val")
+                    self._track_best(task)
                 # validation-driven control flow fires only on epochs that
                 # validated (or every epoch without a val loader)
                 if ran_val or val_loader is None:
@@ -300,10 +310,36 @@ class Trainer:
                 if self.max_steps > 0 and self.global_step >= self.max_steps:
                     break
         finally:
+            if profiler is not None:
+                self._stop_profiler(profiler)
             for cb in self.callbacks:
                 cb.on_fit_end(self, task)
             for logger in self.loggers:
                 logger.finalize()
+
+    def _start_profiler(self):
+        """A started ``torch.profiler`` for ``profiler="jax"|"advanced"``, else None."""
+        if self.profiler not in ("jax", "advanced"):
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler) -> Path:
+        """Stop ``profiler`` and write its Chrome trace under ``<default_root_dir>/profile``."""
+        self._sync()
+        profiler.stop()
+        profile_dir = Path(self.default_root_dir) / "profile"
+        profile_dir.mkdir(parents=True, exist_ok=True)
+        trace = profile_dir / f"fit-{time.strftime('%Y%m%d-%H%M%S')}-{os.getpid()}.pt.trace.json"
+        profiler.export_chrome_trace(str(trace))
+        log.info(f"Profiler trace written to {profile_dir}")
+        return trace
 
     def _run_train_epoch(self, task, loader, augment, val_loader=None) -> None:
         loader.set_epoch(0 if self._overfit else self.current_epoch)
@@ -340,6 +376,7 @@ class Trainer:
             done = i + 1
             if val_every and done % val_every == 0 and done < n_batches:
                 self._run_eval(val_loader, prefix="val")
+                self._track_best(task)
                 self._val_ran = True
                 for cb in self.callbacks:
                     cb.on_validation_epoch_end(self, task)
@@ -386,6 +423,18 @@ class Trainer:
         if not self.sanity_checking:
             self.log_metrics(means)
         return means
+
+    def _track_best(self, task) -> None:
+        """Running best values (JAX ``trainer.py:770-780``): a task declares
+        ``track_best = {"val/acc": ("max", "val/acc_best")}``, and each
+        validation logs the best ``val/acc`` so far as ``val/acc_best``."""
+        for metric, (mode, name) in getattr(task, "track_best", {}).items():
+            if metric not in self.callback_metrics:
+                continue
+            value = self.callback_metrics[metric]
+            prev = self.callback_metrics.get(name)
+            best = value if prev is None else (max(prev, value) if mode == "max" else min(prev, value))
+            self.log_metrics({name: best})
 
     def _epoch_end_control_flow(self, task) -> None:
         """ReduceLROnPlateau on the monitored metric."""

@@ -95,28 +95,42 @@ def _image(result):
     return result[0] if isinstance(result, tuple) else result
 
 
-def make_tiled_generator(task, num_steps: int) -> Callable[[np.ndarray], np.ndarray]:
+def _bind(task, gen_kwargs: dict) -> dict:
+    """``gen_kwargs`` with each array condition (numpy or torch, e.g. ``mask=``)
+    moved to ``task.device`` once, when the generator is built."""
+    return {k: torch.as_tensor(v).to(task.device) if isinstance(v, (np.ndarray, torch.Tensor)) else v
+            for k, v in gen_kwargs.items()}
+
+
+def make_tiled_generator(task, num_steps: int, **gen_kwargs) -> Callable[[np.ndarray], np.ndarray]:
     """``task.generate`` as a batched tile translator on numpy arrays.
 
     Each fixed-shape numpy batch moves to ``task.device``, runs through
     ``generate`` and comes back as an f32 numpy array. A multitask task's
-    ``(image, mask)`` comes back as the image.
+    ``(image, mask)`` comes back as the image. ``gen_kwargs`` are bound into
+    every ``generate`` call (JAX ``wsi.py:110-134``): ``target_class=2`` for a
+    fixed-class any2any run, or ``mask=`` of the tile batch's shape for a
+    mask-conditioned task; for a class chosen per call use
+    :func:`make_conditioned_tiled_generator`.
     """
+    bound = _bind(task, gen_kwargs)
 
     def gen(batch: np.ndarray) -> np.ndarray:
         x = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(task.device)
-        return _image(task.generate(x, num_steps=num_steps)).to(torch.float32).cpu().numpy()
+        return _image(task.generate(x, num_steps=num_steps, **bound)).to(torch.float32).cpu().numpy()
 
     return gen
 
 
-def make_conditioned_tiled_generator(task, num_steps: int) -> Callable[[np.ndarray, int], np.ndarray]:
+def make_conditioned_tiled_generator(task, num_steps: int, **gen_kwargs) -> Callable[[np.ndarray, int], np.ndarray]:
     """The class-conditioned variant, ``gen(batch, target_class)``: one
-    generator serves every target stain, the class chosen per call."""
+    generator serves every target stain, the class chosen per call; the
+    other conditions are bound as in :func:`make_tiled_generator`."""
+    bound = _bind(task, gen_kwargs)
 
     def gen(batch: np.ndarray, target_class: int) -> np.ndarray:
         x = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(task.device)
-        out = task.generate(x, num_steps=num_steps, target_class=int(target_class))
+        out = task.generate(x, num_steps=num_steps, target_class=int(target_class), **bound)
         return _image(out).to(torch.float32).cpu().numpy()
 
     return gen

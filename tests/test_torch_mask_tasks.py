@@ -13,7 +13,8 @@
   toggle coin injected, and ``generate`` (euler, 2 steps), at 3e-4; the
   conditioned task refuses to generate without a mask, the toggled one
   generates on a zero mask; the server serves the toggled task and refuses
-  the conditioned one.
+  the conditioned one, unless a mask is bound into it (``mask=``), which it
+  then serves as JAX's server does, at 3e-4.
 - The aux head: trained by the optimizer, saved and restored with the
   checkpoint; a checkpoint without heads still loads into a plain task.
 - Panels: the ``"mask"`` panel, written gray by the file logger.
@@ -351,6 +352,27 @@ def test_server_serves_the_toggled_task_and_refuses_the_conditioned_one():
     _, _, conditioned = _tasks("conditioned")
     with pytest.raises(ValueError, match="requires the conditioning mask"):
         TranslationServer(conditioned, num_steps=2, tile=SIZE, overlap=4, batch=2)
+
+
+def test_server_binds_a_fixed_mask_as_jax():
+    """``TranslationServer(task, …, mask=m)`` binds the mask into every tile
+    batch's ``generate``, as JAX ``server.py:67, :90-94``: both packages
+    serve the mask-conditioned task with a fixed zero mask on one region
+    alike; a ones mask serves another image."""
+    from stain2stain_tpu.server import TranslationServer as JaxTranslationServer
+
+    jtask, variables, conditioned = _tasks("conditioned")
+    img = np.random.default_rng(11).integers(0, 256, size=(20, 26, 3), dtype=np.uint8)
+    zeros = np.zeros((2, SIZE, SIZE, 1), np.float32)
+    with jax.default_matmul_precision("highest"):
+        ref = JaxTranslationServer(jtask, variables, num_steps=2, tile=SIZE, overlap=4, batch=2,
+                                   mask=jnp.asarray(zeros)).translate(img)
+    got = TranslationServer(conditioned, num_steps=2, tile=SIZE, overlap=4, batch=2, mask=zeros).translate(img)
+    assert got.shape == (20, 26, 3)
+    np.testing.assert_allclose(got, ref, atol=TOL, rtol=0)
+    ones = TranslationServer(conditioned, num_steps=2, tile=SIZE, overlap=4, batch=2,
+                             mask=torch.ones(2, SIZE, SIZE, 1)).translate(img)
+    assert np.abs(ones - got).max() > 1e-3
 
 
 # ------------------------------------------------------------ the aux head

@@ -405,8 +405,9 @@ def test_fast_dropout_modes():
     assert set(torch.unique(a).tolist()) <= {0.0, 2.0}
     assert tdropout.FastDropout(0.0).train()(x) is x
     assert not any(True for _ in drop.parameters())
+    assert tdropout.FastDropout(0.1, impl="bits").impl == "bits"  # JAX's hardware_dropout, ported
     with pytest.raises(NotImplementedError):
-        tdropout.FastDropout(0.1, impl="bits")
+        tdropout.FastDropout(0.1, impl="rbg")
 
 
 @pytest.mark.parametrize("sigma", [0.0, 0.2])
