@@ -17,7 +17,8 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    serving shapes (f32 and bf16), the training shapes (bf16 at 256 px, f32
    at 512 px, with the lse that training saves), ``generate_all_classes``'
    shape (BH 768, f32), the 512-px mask paths' shape (128, 4096, 32, f32,
-   with the lse), d 16 and d 64 (both dtypes), T 4096, ragged T,
+   with the lse), a rank's 512-px shape of phase 28 (48, 4096, 32, f32, with
+   the lse), d 16 and d 64 (both dtypes), T 4096, ragged T,
    peaked logits (q × 8); times of the kernel
    (per call, ``ms``, and queued device time, ``queued_ms``, see
    :func:`cuda_queued_ms`), the plain version and
@@ -26,7 +27,8 @@ Phases (any failure ends the script with a non-zero exit and no result line):
 4. K1-bwd (``csrc/attention_bwd.cu``) against its plain version (the
    explicit backward, itself checked against torch autograd through the
    plain forward) at the same kinds of shapes (f32 first at the 512-px f32
-   training shape (96, 4096, 32), then the mask paths' (128, 4096, 32)),
+   training shape (96, 4096, 32), then a rank's of phase 28 (48, 4096, 32)
+   and the mask paths' (128, 4096, 32)),
    through both routes: the lse from K1-fwd
    given (training's route) and recomputed; each run twice, equal bit for
    bit; times of both routes, the plain version and the backward of
@@ -173,10 +175,28 @@ Phases (any failure ends the script with a non-zero exit and no result line):
     256) bf16 tensor on the card: values {0, 1/(1-rate)}, the keep fraction
     within 5σ of 0.9, the backward's mask the forward's, the same mask from
     the same generator state; its time beside ``hash_dropout``'s.
-27. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5, each with ``ms`` and
-    ``queued_ms``, and launches by path, the multitask paths' and phases
-    22–25's included), the seconds of every phase, the card line, and
-    ``{"ok": true, "device": ...}`` as the last line.
+27. ``train-ddp``: ``python -m stain2stain_tpu_torch.train`` in a
+    subprocess with torchrun's launch variables for a world of 1 (NCCL, the
+    net under ``DistributedDataParallel``) at phase 8's operating point plus
+    ``trainer=ddp`` (he2ihc_CF_new_data's: f32, 512 px, global batch 6), 8
+    steps, validation, checkpoints, test: its first loss equals phase 8's
+    within 1e-5 relative; K1-fwd once a forward, K1-bwd once a step, counted
+    over the fit by a callback (``ddp_probe``); the step time and peak
+    memory beside phase 8's.
+28. ``train-ddp-2rank``: two processes share the card, each joining a gloo
+    group itself (NCCL refuses two ranks on one device) and running
+    ``train.train(cfg)`` with ``trainer=ddp``: 3 tiles a rank (K1 at
+    (48, 4096, 32)), dropout 0, 4 steps, validation, checkpoints, test. The
+    ranks' parameters are bit-identical after every step; the step-1
+    all-reduced gradient is within 1e-4 × max|g| of one process's on the
+    same global batch; rank 1 writes no file; the last checkpoint resumes
+    in one process with rank 0's weights; each rank's peak and the time of
+    a gradient-sized gloo all-reduce. Then ``trainer=fsdp trainer.fsdp=2``
+    for 2 steps: the moments sharded (``ShardedOptimizer``), the ranks equal.
+29. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5, each with ``ms`` and
+    ``queued_ms``, and launches by path, the multitask paths', phases
+    22–25's and 27–28's included), the seconds of every phase, the card
+    line, and ``{"ok": true, "device": ...}`` as the last line.
 
 With ``--profile`` it also profiles a tile batch and a request, and a train
 step of each path (``phase_profile_train``), the binary multitask study's
@@ -386,6 +406,8 @@ def phase_kernels(exp_per_s: float) -> dict:
         (256, 1024, 32, "float32", 1.0, False, "256-px serving shape, f32 (the config's dtype: the main path)"),
         (96, 4096, 32, "float32", 1.0, True,
          "512-px f32 training shape (batch 6, 16 heads), lse saved: train-f32's call"),
+        (48, 4096, 32, "float32", 1.0, True,
+         "512-px f32 training shape a rank of 2 (global batch 6, 3 a rank), lse saved: train-ddp-2rank's call"),
         (128, 4096, 32, "float32", 1.0, True,
          "512-px f32 mask training shape (batch 8, 16 heads), lse saved: the mask paths' call, six a forward "
          "on the mask-conditioned net"),
@@ -476,6 +498,7 @@ def phase_k1_bwd(exp_per_s: float) -> dict:
     cases = [  # (BH, T, d, dtype, q scale, what)
         (512, 1024, 32, "bfloat16", 1.0, "256-px training shape (batch 32, 16 heads), bf16: the main path"),
         (96, 4096, 32, "float32", 1.0, "512-px f32 training shape (batch 6, 16 heads): the train-f32 path"),
+        (48, 4096, 32, "float32", 1.0, "512-px f32 training shape a rank of 2 (3 a rank): the train-ddp-2rank path"),
         (128, 4096, 32, "float32", 1.0,
          "512-px f32 mask training shape (batch 8, 16 heads): the mask paths, six a step on the mask-conditioned net"),
         (512, 1024, 32, "float32", 1.0, "256-px training shape, f32"),
@@ -1155,7 +1178,7 @@ def phase_train(card: str, work: Path, name: str = "train", callbacks: Optional[
         dm = objects["datamodule"]
         loader = dm.train_dataloader()
         loader.set_epoch(0)
-        drawn = [int(i) for b in loader._batches()[:steps] for i in b]
+        drawn = [int(i) for b in loader._local_batches()[:steps] for i in b]
         n_pos = len(dm.data_train.datasets[0])
         summary["negatives_drawn"] = sum(i >= n_pos for i in drawn)
         summary["examples_drawn"] = len(drawn)
@@ -2382,6 +2405,298 @@ def phase_mnist_sweep(card: str, work: Path) -> dict:
     return out
 
 
+# data-parallel training at he2ihc_CF_new_data's operating point (trainer=ddp: f32, 512 px, global batch 6)
+DDP_OVERRIDES = TRAIN_F32_OVERRIDES + ["trainer=ddp"]
+# two ranks on one card: 3 tiles a rank, 4 steps, dropout 0 so the step-1 gradient can be held against one
+# process's on the same global batch (a rank's dropout masks are not one process's, ops/dropout.draw_seed);
+# logger and checkpoint directories of their own, so that rank 1's can be seen to stay empty
+DDP2_STEPS = 4
+DDP2_OVERRIDES = DDP_OVERRIDES + ["model.net.dropout=0.0", f"trainer.limit_train_batches={DDP2_STEPS}"]
+# the ZeRO run: 2 steps, the moments of every parameter whose largest dim is at least 256 sharded: 232 of
+# the flagship's 276 tensors, 98.3 % of its weights (the config's fsdp_min_size 1024 shards 24 of them, 21.1 %)
+FSDP_OVERRIDES = TRAIN_F32_OVERRIDES + ["trainer=fsdp", "trainer.fsdp=2", "trainer.fsdp_min_size=256",
+                                        "model.net.dropout=0.0", "trainer.limit_train_batches=2", "test=false"]
+DDP_FIRST_LOSS_REL_TOL = 1e-5
+DDP_GRAD_REL_TOL = 1e-4  # x max|g|: two ranks' all-reduced gradient against one process's
+
+
+def ddp_probe(out: str, grads: Optional[str] = None):
+    """A training callback for the data-parallel phases: zeroes the kernel
+    counts at fit start and reads them at fit end (the fit is the main path),
+    records each step's device-synchronized end time, local loss and a float64
+    checksum of the parameters, the net's forward calls and the peak memory,
+    and (``grads``) saves the step-1 gradient as the optimizer sees it, after
+    DDP's all-reduce. With several ranks it then times the all-reduce of one
+    buffer of the net's parameter count (DDP's bucketed all-reduce a step
+    moves those bytes, partly under the backward). Writes
+    ``<out>.rank<r>.json``."""
+    import torch
+
+    from stain2stain_tpu_torch.training import Callback
+
+    class DDPProbe(Callback):
+        def __init__(self):
+            self.ends, self.losses, self.checksums, self.forwards, self.t0 = [], [], [], [0], None
+
+        def on_fit_start(self, trainer, task):
+            task.net.register_forward_hook(lambda *_: self.forwards.__setitem__(0, self.forwards[0] + 1))
+            if grads and trainer.is_global_zero:
+                optimizer = getattr(trainer.state.optimizer, "optimizer", trainer.state.optimizer)
+
+                def keep(opt, args, kwargs):
+                    if trainer.state.step == 0:
+                        torch.save({n: p.grad.detach().cpu() for n, p in task.net.named_parameters()}, grads)
+
+                optimizer.register_step_pre_hook(keep)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_kernel_launches()
+
+        def on_train_epoch_start(self, trainer, task):
+            torch.cuda.synchronize()
+            self.t0 = time.perf_counter()
+
+        def on_train_batch_end(self, trainer, task, metrics):
+            self.losses.append(float(metrics["loss"]))  # synchronizes
+            self.ends.append(time.perf_counter())
+            self.checksums.append(sum(float(p.detach().double().abs().sum()) for p in task.net.parameters()))
+
+        def on_fit_end(self, trainer, task):
+            torch.cuda.synchronize()
+            record = dict(rank=trainer.rank, world=trainer.world_size, device=str(trainer.device),
+                          backend=torch.distributed.get_backend() if torch.distributed.is_initialized() else None,
+                          ddp=trainer._ddp is not None, optimizer=type(trainer.state.optimizer).__name__,
+                          t0=self.t0, ends=self.ends, losses=self.losses, checksums=self.checksums,
+                          forwards=self.forwards[0], launches=kernel_launches(),
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                          peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30,
+                          val_loss=trainer.callback_metrics.get("val/loss"), global_step=trainer.global_step)
+            if hasattr(trainer.state.optimizer, "state_bytes"):
+                record["optimizer_state_bytes"] = trainer.state.optimizer.state_bytes()
+                record["sharded_params"] = len(trainer.state.optimizer.sharded())
+            if trainer.world_size > 1:
+                flat = torch.zeros(sum(p.numel() for p in task.net.parameters()), device=trainer.device)
+                times = []
+                for _ in range(3):
+                    torch.distributed.barrier()
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    torch.distributed.all_reduce(flat)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - start) * 1e3)
+                record["allreduce_ms"] = times
+                del flat
+            Path(f"{out}.rank{trainer.rank}.json").write_text(json.dumps(record))
+
+    return DDPProbe()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _step_ms(record: dict) -> float:
+    """The median step of steps 3-8 (2-4 on a shorter run) from a probe's record."""
+    durations = [b - a for a, b in zip([record["t0"]] + record["ends"][:-1], record["ends"])]
+    steady = durations[2:8] if len(durations) >= 8 else durations[1:]
+    return statistics.median(steady) * 1e3
+
+
+def _module_name() -> str:
+    """This script's module name as another process imports it."""
+    return "chip_smoke" if __name__ == "__main__" else __name__
+
+
+def phase_train_ddp(card: str, work: Path, f32_summary: dict) -> dict:
+    """``train-ddp``: ``python -m stain2stain_tpu_torch.train`` in a subprocess
+    with torchrun's launch variables for a world of 1 (NCCL, the net under
+    DDP) at phase 8's operating point plus ``trainer=ddp``, on a 512-px tree
+    its rank 0 writes: 8 steps, validation, checkpoints, test. K1-fwd f32 with
+    the lse at (96, 4096, 32) once a forward, K1-bwd once a step. Its first
+    loss equals phase 8's (the same seed, data and draws; rank 0's dropout
+    seeds are one process's) within 1e-5 relative."""
+    data, out = work / "data-512", work / "ddp-probe"
+    overrides = DDP_OVERRIDES + [f"data.data_dir={data}", f"paths.log_dir={work / 'logs'}",
+                                 "extras.print_config=false", f"+callbacks.ddp_probe._target_={_module_name()}.ddp_probe",
+                                 f"+callbacks.ddp_probe.out={out}"]
+    env = dict(os.environ, PYTHONPATH=str(REPO), PROJECT_ROOT=str(REPO), RANK="0", WORLD_SIZE="1",
+               LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    log("train-ddp: " + " ".join(overrides))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "stain2stain_tpu_torch.train", *overrides], cwd=work, env=env,
+                          capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"train-ddp exited {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    record = json.loads(Path(f"{out}.rank0.json").read_text())
+    first, ref = record["losses"][0], f32_summary["losses"][0]
+    rel = abs(first - ref) / abs(ref)
+    steps, launches = len(record["losses"]), record["launches"]
+    summary = dict(card=card, wall_s=wall_s, steps=steps, world=record["world"], backend=record["backend"],
+                   ddp=record["ddp"], device=record["device"], first_loss=first, first_loss_train_f32=ref,
+                   first_loss_rel_diff=rel, step_ms_median_3_8=_step_ms(record),
+                   train_f32_step_ms=f32_summary["step_ms_median_3_8"], peak_mem_gib=record["peak_gib"],
+                   train_f32_peak_gib=f32_summary["peak_mem_gib"], forwards=record["forwards"],
+                   k1_fwd_launches=launches["K1-fwd"], k1_bwd_launches=launches["K1-bwd"],
+                   other_launches={k: launches[k] for k in ("K2", "K3", "K4", "K5")}, val_loss=record["val_loss"],
+                   losses=record["losses"])
+    log("train-ddp " + json.dumps(summary))
+    if (record["world"], record["ddp"], steps) != (1, True, 8) or "nccl" not in str(record["backend"]):
+        raise AssertionError(f"train-ddp did not run 8 steps under DDP in a world of 1 over NCCL: {summary}")
+    if rel > DDP_FIRST_LOSS_REL_TOL:
+        raise AssertionError(f"train-ddp's first loss {first} is not train-f32's {ref} (rel {rel})")
+    if launches["K1-bwd"] != steps or launches["K1-fwd"] != record["forwards"] or any(summary["other_launches"].values()):
+        raise AssertionError(f"train-ddp launches {launches}: K1-fwd once a forward ({record['forwards']}), "
+                             f"K1-bwd once a step ({steps}), K2-K5 never")
+    return summary
+
+
+def ddp_worker(spec: dict) -> None:
+    """One rank of ``train-ddp-2rank``: joins a gloo group of 2 itself (NCCL
+    refuses two ranks on one card; gloo's all_reduce and broadcast take CUDA
+    tensors), with ``LOCAL_RANK`` 0, then ``train.train(cfg)``."""
+    import torch
+
+    rank = int(spec["rank"])
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0")
+    torch.distributed.init_process_group("gloo", init_method=spec["init"], rank=rank, world_size=2)
+    from stain2stain_tpu_torch.config import compose
+    from stain2stain_tpu_torch.train import train
+
+    cfg = compose(REPO / "configs", "train.yaml", spec["overrides"])
+    cfg["runtime"] = {"output_dir": spec["output_dir"].replace("RANK", str(rank)), "cwd": spec["cwd"]}
+    cfg["extras"]["print_config"] = False
+    cfg["callbacks"]["ddp_probe"] = {"_target_": f"{_module_name()}.ddp_probe", "out": spec["out"],
+                                     "grads": spec.get("grads")}
+    train(cfg)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def _run_pair(name: str, work: Path, overrides: list, out: Path, grads: Optional[Path] = None) -> list[dict]:
+    """Two ``ddp_worker`` processes on the card; both records."""
+    init = f"tcp://127.0.0.1:{_free_port()}"
+    procs = []
+    for rank in range(2):
+        spec = dict(rank=rank, init=init, overrides=overrides, output_dir=str(work / f"{name}-out-rankRANK"),
+                    cwd=str(work), out=str(out), grads=str(grads) if grads else None)
+        procs.append(subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--ddp-worker", json.dumps(spec)],
+                                      cwd=work, env=dict(os.environ, PYTHONPATH=str(REPO), PROJECT_ROOT=str(REPO)),
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=600)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            outs.append(p.communicate()[0])
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{name} rank {rank} exited {p.returncode}:\n{text[-6000:]}")
+    return [json.loads(Path(f"{out}.rank{r}.json").read_text()) for r in range(2)]
+
+
+def phase_train_ddp_2rank(card: str, work: Path, ddp_summary: dict) -> dict:
+    """``train-ddp-2rank``: two ranks share the card over gloo and train the
+    flagship through ``train.train(cfg)`` at phase 8's point plus ``trainer=ddp``
+    (global batch 6, 3 a rank: K1 at (48, 4096, 32)), dropout 0, 4 steps,
+    validation, checkpoints, test. Both ranks' parameters are bit-identical
+    after every step; the step-1 gradient is within 1e-4 x max|g| of one
+    process's on the same global batch (a one-step world-1 run in this
+    process); only rank 0 writes files; the last checkpoint resumes in one
+    process with rank 0's weights. Then ``trainer=fsdp trainer.fsdp=2``
+    (the moments sharded, ZeRO stage 1 over gloo's all_reduce) for 2 steps."""
+    import torch
+
+    from stain2stain_tpu_torch.config import compose
+    from stain2stain_tpu_torch.train import train
+
+    data, grads2 = work / "data-512", work / "grads-world2.pt"
+    common = [f"data.data_dir={data}", f"callbacks.model_checkpoint.dirpath={work / 'ckpt-ddp2'}"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    records = _run_pair("ddp2", work, DDP2_OVERRIDES + common, work / "ddp2-probe", grads2)
+    wall_s = time.perf_counter() - t0
+    stray = [str(p) for p in (work / "ddp2-out-rank1").rglob("*") if p.is_file()]
+    written = [str(p.relative_to(work)) for p in (work / "ddp2-out-rank0").rglob("*") if p.is_file()]
+
+    # one process on the same global batch: the step-1 gradient, then the 2-rank checkpoint resumed
+    cfg = compose(REPO / "configs", "train.yaml", TRAIN_F32_OVERRIDES + [
+        "model.net.dropout=0.0", "trainer.limit_train_batches=1", "trainer.limit_val_batches=1", "test=false",
+        f"data.data_dir={data}", f"callbacks.model_checkpoint.dirpath={work / 'ckpt-world1'}"])
+    cfg["runtime"] = {"output_dir": str(work / "world1-out"), "cwd": str(work)}
+    cfg["extras"]["print_config"] = False
+    grads1 = work / "grads-world1.pt"
+    cfg["callbacks"]["ddp_probe"] = {"_target_": f"{_module_name()}.ddp_probe", "out": str(work / "world1-probe"),
+                                     "grads": str(grads1)}
+    _, objects = train(cfg)
+    g1, g2 = torch.load(grads1), torch.load(grads2)
+    gmax = max(float(g.abs().max()) for g in g1.values())
+    grad_err = max(float((g2[n] - g1[n]).abs().max()) for n in g1)
+    trainer, task = objects["trainer"], objects["model"]
+    trainer._restore(str(work / "ckpt-ddp2" / "last"))
+    resumed_checksum = sum(float(p.detach().double().abs().sum()) for p in task.net.parameters())
+    resumed_step = trainer.state.step
+    del objects, trainer, task
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the ZeRO run: fsdp=2 over the same two ranks
+    t1 = time.perf_counter()
+    fsdp = _run_pair("fsdp2", work, FSDP_OVERRIDES + [f"data.data_dir={data}",
+                                                      f"callbacks.model_checkpoint.dirpath={work / 'ckpt-fsdp2'}"],
+                     work / "fsdp2-probe")
+    fsdp_wall_s = time.perf_counter() - t1
+
+    r0, r1 = records
+    summary = dict(
+        card=card, wall_s=wall_s, steps=len(r0["losses"]), backend=r0["backend"], devices=[r0["device"], r1["device"]],
+        step_ms_median=[_step_ms(r) for r in records], world1_step_ms=ddp_summary["step_ms_median_3_8"],
+        peak_gib=[r["peak_gib"] for r in records], peak_reserved_gib=[r["peak_reserved_gib"] for r in records],
+        checksums_equal=r0["checksums"] == r1["checksums"], checksums=r0["checksums"],
+        losses=[r["losses"] for r in records], val_loss=[r["val_loss"] for r in records],
+        forwards=[r["forwards"] for r in records],
+        k1_fwd_launches=[r["launches"]["K1-fwd"] for r in records],
+        k1_bwd_launches=[r["launches"]["K1-bwd"] for r in records],
+        other_launches=[{k: r["launches"][k] for k in ("K2", "K3", "K4", "K5")} for r in records],
+        grad_max_abs_err=grad_err, grad_max_abs=gmax, grad_tol=DDP_GRAD_REL_TOL * gmax,
+        allreduce_ms=[r["allreduce_ms"] for r in records],
+        allreduce_share=[statistics.median(r["allreduce_ms"]) / _step_ms(r) for r in records],
+        rank1_files=stray, rank0_files=len(written), resumed_step=resumed_step,
+        resumed_checksum=resumed_checksum, rank0_final_checksum=r0["checksums"][-1],
+        fsdp=dict(wall_s=fsdp_wall_s, steps=[len(r["losses"]) for r in fsdp], step_ms=[_step_ms(r) for r in fsdp],
+                  checksums_equal=fsdp[0]["checksums"] == fsdp[1]["checksums"], optimizer=fsdp[0]["optimizer"],
+                  state_bytes=[r.get("optimizer_state_bytes") for r in fsdp],
+                  sharded_params=fsdp[0].get("sharded_params"), peak_gib=[r["peak_gib"] for r in fsdp],
+                  k1_fwd_launches=[r["launches"]["K1-fwd"] for r in fsdp],
+                  k1_bwd_launches=[r["launches"]["K1-bwd"] for r in fsdp]),
+    )
+    log("train-ddp-2rank " + json.dumps(summary))
+    if summary["steps"] != DDP2_STEPS or not summary["checksums_equal"] or r0["backend"] != "gloo":
+        raise AssertionError(f"the two ranks did not run {DDP2_STEPS} gloo steps with equal parameters: {summary}")
+    if grad_err > summary["grad_tol"]:
+        raise AssertionError(f"the 2-rank step-1 gradient is {grad_err} from one process's (tol {summary['grad_tol']})")
+    if stray or not written:
+        raise AssertionError(f"rank 1 wrote {stray}, or rank 0 wrote nothing")
+    if resumed_step != DDP2_STEPS or resumed_checksum != summary["rank0_final_checksum"]:
+        raise AssertionError("the 2-rank checkpoint does not resume in one process with rank 0's weights")
+    for r in records:
+        if (r["launches"]["K1-bwd"] != len(r["losses"]) or r["launches"]["K1-fwd"] != r["forwards"]
+                or any(r["launches"][k] for k in ("K2", "K3", "K4", "K5"))):
+            raise AssertionError(f"rank {r['rank']} launches {r['launches']}: K1-fwd once a forward, "
+                                 "K1-bwd once a step, K2-K5 never")
+    f = summary["fsdp"]
+    if f["steps"] != [2, 2] or not f["checksums_equal"] or f["optimizer"] != "ShardedOptimizer" or not f["sharded_params"]:
+        raise AssertionError(f"the fsdp=2 run did not take 2 equal sharded steps: {f}")
+    return summary
+
+
 def phase_dropout_bits(card: str) -> dict:
     """``dropout-bits``: ``FastDropout(0.1, impl="bits")`` on a (32, 128,
     256, 256) bf16 tensor on the card, backward with dy = 1 (so ``x.grad`` is
@@ -2626,7 +2941,12 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also profile one tile batch, one request and train steps (where the time goes)")
+    parser.add_argument("--ddp-worker", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase 28
     args = parser.parse_args()
+    if args.ddp_worker:
+        sys.path.insert(0, str(REPO))
+        ddp_worker(json.loads(args.ddp_worker))
+        return 0
     try:
         import torch
     except ImportError:
@@ -2788,6 +3108,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     bits = timed("dropout-bits", phase_dropout_bits, card)
     torch.cuda.empty_cache()
+
+    # 27-28. data-parallel training: NCCL in a world of 1 through the CLI, then two gloo ranks on the card
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_", dir=REPO / "scratch") as work:
+        work = Path(work)
+        ddp_summary = timed("train-ddp", phase_train_ddp, card, work, f32_summary)
+        ddp2_summary = timed("train-ddp-2rank", phase_train_ddp_2rank, card, work, ddp_summary)
+    gc.collect()
+    torch.cuda.empty_cache()
     cond_summary, infer_cond, mask_paths = masks["train-masked-conditioned"], masks["infer-conditional"], masks["short"]
     serve_bound = masks["serve-mask-bound"]
     (mt_summary, mt_infer), (mc_summary, mc_infer) = (multitask[n] for n in MULTITASK_PATHS)
@@ -2818,7 +3146,7 @@ def main() -> int:
     log("slice-11 " + json.dumps({"dropout_bits": {k: bits[k] for k in ("bits_ms", "hash_ms", "keep_fraction")},
                                   "mnist_sweep_s": sweep["seconds"], "mnist_best": sweep["best"]}))
 
-    # 27. result lines
+    # 29. result lines
     def row(name, source, replaces, case, launches, by_path, passed):
         return {
             "name": name,
@@ -2859,7 +3187,8 @@ def main() -> int:
              "train_any2any": any2any_summary["k1_fwd_launches"], "serve_any2any": serve_any2any["k1_launches"],
              "train_masked_conditioned": cond_summary["k1_fwd_launches"], "serve_toggle": infer_cond["serve"]["k1_launches"],
              **{n.replace("-", "_"): m["k1_fwd_launches"] for n, m in mask_paths.items()}, **mt_launches["K1-fwd"],
-             **slice_launches["K1-fwd"]},
+             **slice_launches["K1-fwd"], "train_ddp": ddp_summary["k1_fwd_launches"],
+             "train_ddp_2rank": sum(ddp2_summary["k1_fwd_launches"])},
             all(c["ok"] for c in k1["cases"]) and parity["ok"]),
         row("attention_bwd (K1-bwd)", "stain2stain_tpu_torch/csrc/attention_bwd.cu",
             "stain2stain_tpu/ops/pallas_attention.py:78", k1_bwd["cases"][0], train_summary["k1_bwd_launches"],
@@ -2869,7 +3198,8 @@ def main() -> int:
              "train_any2any": any2any_summary["k1_bwd_launches"],
              "train_masked_conditioned": cond_summary["k1_bwd_launches"],
              **{n.replace("-", "_"): m["k1_bwd_launches"] for n, m in mask_paths.items()}, **mt_launches["K1-bwd"],
-             **slice_launches["K1-bwd"]},
+             **slice_launches["K1-bwd"], "train_ddp": ddp_summary["k1_bwd_launches"],
+             "train_ddp_2rank": sum(ddp2_summary["k1_bwd_launches"])},
             all(c["ok"] for c in k1_bwd["cases"]) and grad["ok"] and masks["mask-grad-parity"]["ok"]),
     ] + [
         row(title, f"stain2stain_tpu_torch/csrc/{source}", replaces, convs["rows"][k][0], fused_summary[key],

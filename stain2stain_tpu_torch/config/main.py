@@ -10,6 +10,7 @@ entry points rely on from ``@hydra.main``:
 - ``--multirun`` / ``-m``: comma-separated sweeps over override values, each
   job in ``logs/<task_name>/multiruns/<ts>/<job#>``
 - saves the composed config to ``<output_dir>/.hydra_equiv/config.yaml``
+  (rank 0 of a data-parallel run only)
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import sys
 from pathlib import Path
 from typing import Any, Callable
 
+from ..parallel.distributed import launch_rank
 from .compose import compose
 from .node import Config, select
 
@@ -47,15 +49,15 @@ def _split_sweeps(overrides: list[str]) -> list[list[str]]:
 
 
 def _prepare_run(cfg: Config, output_dir: Path) -> Config:
-    output_dir.mkdir(parents=True, exist_ok=True)
     cfg["runtime"] = {
         "output_dir": str(output_dir),
         "cwd": str(Path.cwd()),
     }
     cfg._rebind_root(cfg)
-    save_dir = output_dir / ".hydra_equiv"
-    save_dir.mkdir(exist_ok=True)
-    (save_dir / "config.yaml").write_text(cfg.to_yaml(resolve=False))
+    if launch_rank() == 0:  # a process launched for rank 1.. takes rank 0's directory (share_output_dir)
+        save_dir = output_dir / ".hydra_equiv"
+        save_dir.mkdir(parents=True, exist_ok=True)
+        (save_dir / "config.yaml").write_text(cfg.to_yaml(resolve=False))
     return cfg
 
 
@@ -97,6 +99,8 @@ def config_main(
                 cfg["runtime.job_num"] = job_num
                 cfg["runtime.multirun"] = multirun
                 cfg["runtime.overrides"] = job_overrides
+                # the overrides are this process's command line (a launcher may re-run it)
+                cfg["runtime.command_line"] = argv is None and not multirun
                 _RUNTIME_CFG = cfg
                 try:
                     results.append(task_fn(cfg))

@@ -1,5 +1,5 @@
 """Data pipeline base: datasets, threaded prefetching loader, DataModule
-(counterpart of ``stain2stain_tpu/data/base.py``, for one process).
+(counterpart of ``stain2stain_tpu/data/base.py``).
 
 - The host only decodes: datasets return uint8 numpy arrays; normalization
   and the paired augmentation run on the device in the task's
@@ -13,6 +13,13 @@
   replacement, by weight, from the same seed (torch's
   ``WeightedRandomSampler``): numpy's draws, so the JAX package's loader
   yields the same batches.
+- ``batch_size`` is the **global** batch. With ``num_shards`` processes
+  (one a device) process ``shard_index`` loads rows ``shard_index::num_shards``
+  of each global batch, ``batch_size // num_shards`` of them (JAX
+  ``data/base.py:161-180``); a ragged final eval batch is first padded to a
+  multiple of ``num_shards`` by repeating its leading indices, and
+  :meth:`DataLoader.real_batch_size` gives the count before padding, the
+  weight of the batch in an eval mean.
 """
 
 from __future__ import annotations
@@ -85,14 +92,21 @@ class DataLoader:
         seed: int = 0,
         collate_fn: Callable = default_collate,
         sampler_weights: Optional[np.ndarray] = None,
+        shard_index: int = 0,
+        num_shards: int = 1,
     ):
+        if batch_size % num_shards != 0:
+            raise ValueError(f"Global batch size {batch_size} must be divisible by process count {num_shards}")
         if drop_last and 0 < len(dataset) < batch_size:
             raise ValueError(
-                f"dataset has {len(dataset)} examples but the batch size is {batch_size} "
+                f"dataset has {len(dataset)} examples but the global batch size is {batch_size} "
                 "with drop_last=True - no full batch can ever be formed"
             )
         self.dataset = dataset
-        self.batch_size = batch_size
+        self.global_batch_size = batch_size
+        self.batch_size = batch_size // num_shards
+        self.shard_index = shard_index
+        self.num_shards = num_shards
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
@@ -111,21 +125,36 @@ class DataLoader:
             self.dataset.set_epoch(epoch)
 
     def __len__(self) -> int:
-        n = len(self.dataset)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        n, gb = len(self.dataset), self.global_batch_size
+        return n // gb if self.drop_last else -(-n // gb)
 
-    def _batches(self) -> list[np.ndarray]:
-        """Index arrays of this epoch's batches (shared with the device cache)."""
+    def real_batch_size(self, b: int) -> int:
+        """Distinct examples in global batch ``b`` (before the padding)."""
+        if self.drop_last:
+            return self.global_batch_size
+        return max(1, min(self.global_batch_size, len(self.dataset) - b * self.global_batch_size))
+
+    def _epoch_indices(self) -> np.ndarray:
         n = len(self.dataset)
         rng = np.random.default_rng(self.seed + self._epoch)
         if self.sampler_weights is not None:
             p = np.asarray(self.sampler_weights, dtype=np.float64)
-            indices = rng.choice(n, size=n, replace=True, p=p / p.sum())
-        elif self.shuffle:
-            indices = rng.permutation(n)
-        else:
-            indices = np.arange(n)
-        return [indices[b * self.batch_size : (b + 1) * self.batch_size] for b in range(len(self))]
+            return rng.choice(n, size=n, replace=True, p=p / p.sum())
+        if self.shuffle:
+            return rng.permutation(n)
+        return np.arange(n)
+
+    def _local_batches(self) -> list[np.ndarray]:
+        """This process's index arrays of this epoch's batches (shared with the device cache)."""
+        indices, gb, k = self._epoch_indices(), self.global_batch_size, self.num_shards
+        batches = []
+        for b in range(len(self)):
+            chunk = indices[b * gb : (b + 1) * gb]
+            if k > 1 and len(chunk) % k:  # ragged final batch: every process gets as many rows
+                pad = k - len(chunk) % k
+                chunk = np.concatenate([chunk, chunk[np.arange(pad) % len(chunk)]])
+            batches.append(chunk[self.shard_index :: k])
+        return batches
 
     def _fetch(self, idxs: np.ndarray) -> tuple:
         get_batch = getattr(self.dataset, "get_batch", None)
@@ -143,7 +172,7 @@ class DataLoader:
         return self.collate_fn(samples)
 
     def __iter__(self) -> Iterator[tuple]:
-        batches = self._batches()
+        batches = self._local_batches()
         out_q: queue.Queue = queue.Queue(maxsize=self.prefetch_factor)
         stop = threading.Event()
 

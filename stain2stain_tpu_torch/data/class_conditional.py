@@ -25,6 +25,7 @@ from typing import Optional, Sequence, Union
 
 import numpy as np
 
+from ..parallel.distributed import process_count, process_index
 from .base import DataLoader, DataModule, Dataset
 from .paired_data_module import load_rgb
 
@@ -166,6 +167,8 @@ class ClassConditionalAnyToAnyDataModule(DataModule):
         self.split_file = Path(data_dir) / "train_val_split.json"
         self.data_train: Optional[PairedAnyToAnyDataset] = None
         self.data_val: Optional[PairedAnyToAnyDataset] = None
+        self.num_shards = process_count()
+        self.shard_index = process_index()
 
     @property
     def num_classes(self) -> int:
@@ -220,7 +223,8 @@ class ClassConditionalAnyToAnyDataModule(DataModule):
         if ds is None or len(ds) == 0:
             return None
         return DataLoader(ds, batch_size=self.batch_size, shuffle=shuffle, drop_last=shuffle,
-                          num_workers=self.num_workers, prefetch_factor=self.prefetch_factor, seed=self.seed)
+                          num_workers=self.num_workers, prefetch_factor=self.prefetch_factor, seed=self.seed,
+                          shard_index=self.shard_index, num_shards=self.num_shards)
 
     def train_dataloader(self) -> Optional[DataLoader]:
         return self._loader(self.data_train, shuffle=True)

@@ -6,7 +6,9 @@ through the normal pipeline, keeps every array field on the CUDA card, and
 from then on gathers each batch by index there: no host→device image
 traffic per step. Epoch order and shuffling are :class:`DataLoader`'s, so
 the cached and streaming loaders yield the same example stream. Non-array
-fields (filenames) stay on the host.
+fields (filenames) stay on the host. With more than one process the
+loader streams instead (JAX ``device_cache.py:84-89``: each process
+would cache the whole dataset for its slice of every batch), and says so.
 """
 
 from __future__ import annotations
@@ -17,7 +19,10 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..utils.pylogger import RankedLogger
 from .base import DataLoader
+
+log = RankedLogger(__name__, rank_zero_only=True)
 
 _MAX_CACHE_BYTES_DEFAULT = 8 << 30
 
@@ -29,6 +34,8 @@ class DeviceCacheLoader(DataLoader):
         super().__init__(*args, **kw)
         self.max_cache_bytes = max_cache_bytes
         self._fields = None  # per field: a device tensor, or a host list
+        if self.num_shards > 1:
+            log.info(f"cache='device' over {self.num_shards} processes: each streams its slice instead")
 
     def _materialize(self) -> None:
         full = self._fetch(np.arange(len(self.dataset)))
@@ -44,9 +51,12 @@ class DeviceCacheLoader(DataLoader):
         ]
 
     def __iter__(self) -> Iterator[tuple]:
+        if self.num_shards > 1:
+            yield from super().__iter__()
+            return
         if self._fields is None:
             self._materialize()
-        for idxs in self._batches():
+        for idxs in self._local_batches():
             out = []
             for field in self._fields:
                 if torch.is_tensor(field):

@@ -6,9 +6,9 @@ MNIST lies under ``data_dir`` (nothing is downloaded). Otherwise a
 deterministic synthetic digit set, :func:`_synthetic_mnist` (numpy: the same
 digits as the JAX package's for the same seed), split in the same
 proportions. Batches are (uint8 (B, 28, 28) images, int labels): the fields
-``("raw", "label")``, normalized by the task. One process: the loader's
-per-process slice (``num_shards``, ``shard_index``) is not ported, so they
-stay 1 and 0.
+``("raw", "label")``, normalized by the task. ``batch_size`` is the global
+batch: each process loads its slice (``num_shards``, ``shard_index`` from the
+process group).
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..parallel.distributed import process_count, process_index
 from .base import DataLoader, DataModule, Dataset
 
 
@@ -67,8 +68,8 @@ class MNISTDataModule(DataModule):
         self.num_workers = num_workers
         self.seed = seed
         self.synthetic_size = synthetic_size
-        self.num_shards = 1
-        self.shard_index = 0
+        self.num_shards = process_count()
+        self.shard_index = process_index()
         self.data_train = self.data_val = self.data_test = None
 
     def _load_real(self) -> Optional[tuple]:
@@ -109,7 +110,8 @@ class MNISTDataModule(DataModule):
         if ds is None or len(ds) == 0:
             return None
         return DataLoader(ds, batch_size=self.batch_size, shuffle=shuffle, drop_last=shuffle,
-                          num_workers=max(1, self.num_workers), seed=self.seed)
+                          num_workers=max(1, self.num_workers), seed=self.seed,
+                          shard_index=self.shard_index, num_shards=self.num_shards)
 
     def train_dataloader(self):
         return self._loader(self.data_train, shuffle=True)

@@ -23,6 +23,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..parallel.distributed import process_count, process_index
 from .base import DataLoader, DataModule, Dataset
 
 _REVERSE_DIRECTIONS = ("T2S", "IHC_to_HE", "reverse")
@@ -185,6 +186,8 @@ class PairedDataModule(DataModule):
         self.seed = seed
         self.prefetch_factor = prefetch_factor
         self._loader_cls = resolve_loader_class(cache)
+        self.num_shards = process_count()
+        self.shard_index = process_index()
         self.datasets: dict[str, PairedDataset] = {}
 
     @property
@@ -227,6 +230,8 @@ class PairedDataModule(DataModule):
             num_workers=self.num_workers,
             prefetch_factor=self.prefetch_factor,
             seed=self.seed,
+            shard_index=self.shard_index,
+            num_shards=self.num_shards,
         )
 
     def train_dataloader(self) -> Optional[DataLoader]:

@@ -20,6 +20,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..parallel.distributed import process_count, process_index
 from .base import DataLoader, DataModule, Dataset
 from .paired_data_module import _read_split, load_rgb, resize_uint8, resolve_direction_swap
 
@@ -142,6 +143,8 @@ class PairedMulticlassDataModule(DataModule):
         self.prefetch_factor = prefetch_factor
         self.direction_compat = direction_compat
         self._loader_cls = resolve_loader_class(cache)
+        self.num_shards = process_count()
+        self.shard_index = process_index()
         self.datasets: dict[str, PairedMulticlassDataset] = {}
 
     @property
@@ -184,6 +187,8 @@ class PairedMulticlassDataModule(DataModule):
             num_workers=self.num_workers,
             prefetch_factor=self.prefetch_factor,
             seed=self.seed,
+            shard_index=self.shard_index,
+            num_shards=self.num_shards,
         )
 
     def train_dataloader(self) -> Optional[DataLoader]:

@@ -17,6 +17,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..parallel.distributed import process_count, process_index
 from .base import ConcatDataset, DataLoader, DataModule, Dataset
 from .paired_data_module import PairedDataset, load_rgb
 
@@ -122,6 +123,8 @@ class PairedPosNegDataModule(DataModule):
         self.train_weights: Optional[np.ndarray] = None
         self.data_val: Optional[Dataset] = None
         self.data_test: Optional[Dataset] = None
+        self.num_shards = process_count()
+        self.shard_index = process_index()
 
     def _positive(self, folder: str) -> PairedDataset:
         return PairedDataset(
@@ -171,12 +174,15 @@ class PairedPosNegDataModule(DataModule):
             prefetch_factor=self.prefetch_factor,
             seed=self.seed,
             sampler_weights=self.train_weights,
+            shard_index=self.shard_index,
+            num_shards=self.num_shards,
         )
 
     def _eval_loader(self, ds) -> Optional[DataLoader]:
         if ds is None:
             return None
-        return DataLoader(ds, batch_size=self.batch_size, shuffle=False, num_workers=self.num_workers, seed=self.seed)
+        return DataLoader(ds, batch_size=self.batch_size, shuffle=False, num_workers=self.num_workers, seed=self.seed,
+                          shard_index=self.shard_index, num_shards=self.num_shards)
 
     def val_dataloader(self) -> Optional[DataLoader]:
         return self._eval_loader(self.data_val)

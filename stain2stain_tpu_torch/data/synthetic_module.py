@@ -12,6 +12,7 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Optional
 
+from ..parallel.distributed import host_barrier, process_index
 from .base import DataModule
 from .paired_data_mask import PairedHEIHCDataModule
 from .paired_data_module import PairedDataModule
@@ -100,7 +101,12 @@ class SyntheticPairedDataModule(DataModule):
             )
 
     def setup(self, stage: Optional[str] = None) -> None:
-        self.prepare_data()  # hermetic even if prepare_data was skipped
+        # hermetic even if prepare_data was skipped; with several processes
+        # only rank 0 writes the tree (concurrent writers tear its files) and
+        # the others wait for it (JAX ``synthetic_module.py:111-125``)
+        if process_index() == 0:
+            self.prepare_data()
+        host_barrier("synthetic_generate")
         self._inner.setup(stage)
 
     def train_dataloader(self):

@@ -5,7 +5,10 @@ on a checkpoint.
 
 Composes ``configs/eval.yaml``, instantiates the datamodule, loggers,
 Trainer and the task with its net on the trainer's device (the CUDA card
-unless ``trainer=cpu``), and runs ``Trainer.test`` on ``ckpt_path``.
+unless ``trainer=cpu``), and runs ``Trainer.test`` on ``ckpt_path``. Like
+``train``, it joins the process group of the launch variables first, or
+starts one process a device for ``trainer.devices`` N > 1; the test means are
+then global.
 """
 
 from __future__ import annotations
@@ -15,8 +18,17 @@ from pathlib import Path
 from typing import Optional
 
 from .config import Config, config_main, instantiate
+from .parallel.distributed import host_barrier, process_index
+from .parallel.launch import launch_processes, stop_processes
 from .utils.pylogger import RankedLogger
-from .utils.utils import extras, instantiate_loggers, instantiate_task, log_hyperparameters, task_wrapper
+from .utils.utils import (
+    extras,
+    instantiate_loggers,
+    instantiate_task,
+    log_hyperparameters,
+    share_output_dir,
+    task_wrapper,
+)
 
 log = RankedLogger(__name__, rank_zero_only=True)
 
@@ -47,15 +59,24 @@ def evaluate(cfg: Config) -> tuple[dict, dict]:
         log_hyperparameters(object_dict)
 
     log.info("Starting testing!")
-    datamodule.prepare_data()
+    if process_index() == 0:
+        datamodule.prepare_data()
+    host_barrier("prepare_data")
     metrics = trainer.test(model, datamodule, ckpt_path=cfg["ckpt_path"])
     return metrics, object_dict
 
 
 @config_main(config_path="../configs", config_name="eval.yaml")
 def main(cfg: Config) -> Optional[dict]:
-    extras(cfg)
-    metric_dict, _ = evaluate(cfg)
+    children = launch_processes(cfg["trainer"], bool(cfg.get("runtime", {}).get("command_line")))
+    try:
+        share_output_dir(cfg)
+        extras(cfg)
+        metric_dict, _ = evaluate(cfg)
+    except BaseException:
+        stop_processes(children, failed=True)
+        raise
+    stop_processes(children)
     return metric_dict
 
 

@@ -19,7 +19,12 @@ Norms follow flax's defaults, not torch's (``Norm2d``, JAX ``:27-42``):
   buffers: ε 1e-5, running statistics updated as
   ``0.99 · running + 0.01 · batch`` (flax momentum 0.99 is torch 0.01) with
   the **biased** batch variance (torch uses the unbiased one), in training
-  mode; evaluation normalizes with the running statistics.
+  mode; evaluation normalizes with the running statistics. Under data
+  parallelism (the trainer's :func:`~..parallel.mesh.sharded_batch`) the
+  training statistics are the global batch's, as JAX's are under ``jit``:
+  one autograd-aware ``all_reduce`` of the per-channel sum and sum of
+  squares, the variance E[x²] − E[x]² (flax's). ``nn.SyncBatchNorm`` would
+  move the running variance toward the unbiased one.
 
 Layout: the image enters NHWC (B, H, W, C) as in the port's ``UNetModel``;
 the feature maps between the encoder and the decoders are NCHW. ``dtype`` is
@@ -40,6 +45,7 @@ from torch import nn
 
 from .._device import DeviceLike, resolve_device
 from ..ops.time_embedding import timestep_embedding_sincos
+from ..parallel.mesh import batch_sharded, batch_sum
 from .unet import _as_dtype, _conv, _gn_groups
 
 GROUP_NORM_EPS = 1e-6  # flax nn.GroupNorm's default
@@ -60,12 +66,27 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+        if batch_sharded():
+            return self._synced_forward(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             self.running_mean.mul_(BATCH_NORM_MOMENTUM).add_(mean, alpha=1.0 - BATCH_NORM_MOMENTUM)
             self.running_var.mul_(BATCH_NORM_MOMENTUM).add_(var, alpha=1.0 - BATCH_NORM_MOMENTUM)
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _synced_forward(self, x: torch.Tensor) -> torch.Tensor:
+        local_count = x.new_full((x.shape[1],), float(x.numel() // x.shape[1]))
+        total, total_sq, count = batch_sum(torch.stack([x.sum(dim=(0, 2, 3)), x.square().sum(dim=(0, 2, 3)),
+                                                        local_count]))
+        mean = total / count
+        var = torch.clamp(total_sq / count - mean.square(), min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(BATCH_NORM_MOMENTUM).add_(mean, alpha=1.0 - BATCH_NORM_MOMENTUM)
+            self.running_var.mul_(BATCH_NORM_MOMENTUM).add_(var, alpha=1.0 - BATCH_NORM_MOMENTUM)
+            self.num_batches_tracked.add_(1)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return x * scale[None, :, None, None] + (self.bias - mean * scale)[None, :, None, None]
 
 
 def norm2d(norm: str, channels: int, device: DeviceLike = None) -> nn.Module:

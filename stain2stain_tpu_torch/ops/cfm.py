@@ -8,7 +8,10 @@ path). ``TargetConditionalFlowMatcher`` is the Lipman et al. path from noise.
 Randomness comes from an explicit ``torch.Generator``; ``t`` and ``eps`` can
 be passed in instead, which is how the tests hand both packages the same
 draws. Draws are made on the generator's device (the CPU by default) and
-moved to the data's.
+moved to the data's. Under data parallelism the trainer's generator knows
+this rank's rows of the global batch: ``t`` and ``eps`` are drawn for the
+global batch and sliced (:func:`~..parallel.mesh.draw_rows`), so each
+example draws what it would in one process.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import draw_rows
+
 
 def _bcast_t(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Reshape per-example t (B,) for broadcasting against x (B, ...)."""
@@ -26,7 +31,9 @@ def _bcast_t(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def _normal(shape, like: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
     device = generator.device if generator is not None else like.device
-    return torch.randn(shape, generator=generator, device=device, dtype=like.dtype).to(like.device)
+    rows = draw_rows(lambda n: torch.randn((n, *shape[1:]), generator=generator, device=device, dtype=like.dtype),
+                     shape[0], generator)
+    return rows.to(like.device)
 
 
 @dataclass(frozen=True)
@@ -37,7 +44,7 @@ class ConditionalFlowMatcher:
 
     def sample_t(self, batch: int, generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
         gen_device = generator.device if generator is not None else device
-        return torch.rand((batch,), generator=generator, device=gen_device).to(device)
+        return draw_rows(lambda n: torch.rand((n,), generator=generator, device=gen_device), batch, generator).to(device)
 
     def sample_xt(self, x0, x1, t, eps: Optional[torch.Tensor] = None, generator=None) -> torch.Tensor:
         tb = _bcast_t(t, x0).to(x0.dtype)

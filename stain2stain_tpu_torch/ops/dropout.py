@@ -36,6 +36,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel.mesh import generator_rows
+
 _M1 = 0x85EBCA6B
 _M2 = 0xC2B2AE35
 
@@ -132,9 +134,25 @@ def hardware_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     return _SeededDropout.apply(x, bits_mask, int(seed) & 0xFFFFFFFF, float(rate))
 
 
+_RANK_STRIDE = 0x9E3779B9  # 2^32 / golden ratio
+
+
 def draw_seed(generator: Optional[torch.Generator] = None) -> int:
-    """One uint32 seed from ``generator`` (torch's default generator if None)."""
-    return int(torch.randint(0, 2**32, (1,), dtype=torch.int64, generator=generator))
+    """One uint32 seed from ``generator`` (torch's default generator if None).
+
+    Under data parallelism (a generator that knows this rank's rows of the
+    global batch, :func:`~..parallel.mesh.generator_rows`) every rank draws the
+    same seed and folds its rank in: rank ``r`` adds ``r · 0x9E3779B9``. The
+    hash masks hash (element index + seed), so rank ``r``'s mask is rank 0's
+    shifted by ``r · 0x9E3779B9`` elements mod 2^32: any two of 8 ranks lie
+    at least 3.87e8 elements apart, more than any tensor the UNet holds (the
+    first level at batch 32, 256 px: 2.68e8), so no two share mask bits. Rank 0, and
+    one process, keep the drawn seed. The masks are not those of one process
+    on the global batch (the index would need the example's global position,
+    which the fused conv kernel does not take)."""
+    seed = int(torch.randint(0, 2**32, (1,), dtype=torch.int64, generator=generator))
+    rank = generator_rows(generator)[0]
+    return (seed + rank * _RANK_STRIDE) & 0xFFFFFFFF
 
 
 _IMPLS = {"hash": hash_dropout, "bits": hardware_dropout}

@@ -13,6 +13,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import draw_rows
+
 
 def normalize_uint8(img: torch.Tensor) -> torch.Tensor:
     """uint8 [0,255] → float32 [-1, 1] ((x/255 - 0.5) / 0.5)."""
@@ -51,19 +53,21 @@ def paired_random_crop_flip(
     Per-example offsets and flip bits are drawn once from ``generator`` (on
     its device, the CPU by default) and applied identically to every tensor,
     so source, target and mask stay aligned. Each of them can be passed in
-    instead (the tests hand both packages the same draws).
+    instead (the tests hand both packages the same draws). With a
+    generator that knows this rank's rows of the global batch they are drawn
+    for the global batch and sliced (:func:`~..parallel.mesh.draw_rows`).
     """
     ref = images[0]
     batch, height, width = ref.shape[0], ref.shape[1], ref.shape[2]
     gdev = generator.device if generator is not None else "cpu"
 
     def draw_int(high: int) -> torch.Tensor:
-        return torch.randint(0, high, (batch,), generator=generator, device=gdev)
+        return draw_rows(lambda n: torch.randint(0, high, (n,), generator=generator, device=gdev), batch, generator)
 
     def draw_bit(enabled: bool) -> torch.Tensor:
         if not enabled:
             return torch.zeros((batch,), dtype=torch.bool)
-        return torch.rand((batch,), generator=generator, device=gdev) < 0.5
+        return draw_rows(lambda n: torch.rand((n,), generator=generator, device=gdev), batch, generator) < 0.5
 
     if tops is None:
         tops = draw_int(max(height - crop_size, 0) + 1)

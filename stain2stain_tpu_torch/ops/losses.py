@@ -18,11 +18,18 @@ so an id outside [0, C) is a zero row as in ``jax.nn.one_hot``; in the
 cross-entropy such an id gives NaN, as JAX's ``take_along_axis`` fills it
 (a negative id ≥ −C wraps around as a numpy index does), and never indexes
 out of bounds on the device.
+
+Under data parallelism the global sums span every rank's rows
+(:func:`~..parallel.mesh.batch_sum`): the Dice, ROI and cross-entropy
+ratios are the global batch's, as JAX computes them; the plain means are
+averaged over the ranks by the caller.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel.mesh import batch_sum
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -40,7 +47,8 @@ def roi_weighted_mse(
     """Σ w·err² / (Σ w · C + 1e-8) with w = 1 + λ·mask (torch ``expand_as`` semantics)."""
     weights = 1.0 + roi_lambda * _f32(mask)  # (B, H, W, 1)
     sq_err = torch.square(_f32(pred) - _f32(target))  # (B, H, W, C)
-    return torch.sum(weights * sq_err) / (torch.sum(weights) * pred.shape[-1] + 1e-8)
+    num, den = batch_sum(torch.stack([torch.sum(weights * sq_err), torch.sum(weights)]))
+    return num / (den * pred.shape[-1] + 1e-8)
 
 
 def charbonnier(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
@@ -54,7 +62,8 @@ def roi_charbonnier(
 ) -> torch.Tensor:
     """Charbonnier penalty averaged over the ROI pixels (× channels)."""
     m = _f32(mask)
-    return torch.sum(charbonnier(pred, target, eps) * m) / (torch.sum(m) * pred.shape[-1] + 1e-8)
+    num, den = batch_sum(torch.stack([torch.sum(charbonnier(pred, target, eps) * m), torch.sum(m)]))
+    return num / (den * pred.shape[-1] + 1e-8)
 
 
 def bce_with_logits(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -67,8 +76,8 @@ def dice_loss(logits: torch.Tensor, target: torch.Tensor, smooth: float = 1.0) -
     """Binary Dice loss over the whole batch (global sums of sigmoid probabilities)."""
     probs = torch.sigmoid(_f32(logits)).reshape(-1)
     target = _f32(target).reshape(-1)
-    dice = (2.0 * torch.sum(probs * target) + smooth) / (torch.sum(probs) + torch.sum(target) + smooth)
-    return 1.0 - dice
+    inter, p_sum, t_sum = batch_sum(torch.stack([torch.sum(probs * target), torch.sum(probs), torch.sum(target)]))
+    return 1.0 - (2.0 * inter + smooth) / (p_sum + t_sum + smooth)
 
 
 def _one_hot(ids: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -92,9 +101,10 @@ def multiclass_dice_loss(
     keep = valid[..., None].to(torch.float32)
     probs = torch.softmax(_f32(logits), dim=-1) * keep
     one_hot = _one_hot(ids, num_classes) * keep
-    intersection = torch.sum(probs * one_hot, dim=(0, 1, 2))
-    union = torch.sum(probs, dim=(0, 1, 2)) + torch.sum(one_hot, dim=(0, 1, 2))
-    return 1.0 - torch.mean((2.0 * intersection + smooth) / (union + smooth))
+    intersection, p_sum, t_sum = batch_sum(torch.stack([
+        torch.sum(probs * one_hot, dim=(0, 1, 2)), torch.sum(probs, dim=(0, 1, 2)), torch.sum(one_hot, dim=(0, 1, 2))
+    ]))
+    return 1.0 - torch.mean((2.0 * intersection + smooth) / (p_sum + t_sum + smooth))
 
 
 def softmax_cross_entropy(logits: torch.Tensor, target: torch.Tensor, ignore_index: int = -100) -> torch.Tensor:
@@ -107,7 +117,8 @@ def softmax_cross_entropy(logits: torch.Tensor, target: torch.Tensor, ignore_ind
     nll = -torch.gather(log_probs, -1, ids.clamp(0, num_classes - 1)[..., None])[..., 0]
     nll = torch.where(in_range, nll, torch.full_like(nll, float("nan")))
     keep = valid.to(torch.float32)
-    return torch.sum(nll * keep) / torch.clamp_min(torch.sum(keep), 1.0)
+    total, count = batch_sum(torch.stack([torch.sum(nll * keep), torch.sum(keep)]))
+    return total / torch.clamp_min(count, 1.0)
 
 
 def per_class_dice_iou(
@@ -118,8 +129,9 @@ def per_class_dice_iou(
     keep = valid[..., None].to(torch.float32)
     pred_oh = _one_hot(torch.argmax(logits, dim=-1), num_classes) * keep
     tgt_oh = _one_hot(ids, num_classes) * keep
-    intersection = torch.sum(pred_oh * tgt_oh, dim=(0, 1, 2))
-    pred_sum, tgt_sum = torch.sum(pred_oh, dim=(0, 1, 2)), torch.sum(tgt_oh, dim=(0, 1, 2))
+    intersection, pred_sum, tgt_sum = batch_sum(torch.stack([
+        torch.sum(pred_oh * tgt_oh, dim=(0, 1, 2)), torch.sum(pred_oh, dim=(0, 1, 2)), torch.sum(tgt_oh, dim=(0, 1, 2))
+    ]))
     dice = (2.0 * intersection + eps) / (pred_sum + tgt_sum + eps)
     iou = (intersection + eps) / (pred_sum + tgt_sum - intersection + eps)
     return dice, iou

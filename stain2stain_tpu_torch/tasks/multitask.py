@@ -28,6 +28,7 @@ from torch import nn
 
 from ..ops.losses import bce_with_logits, dice_loss, mse_loss
 from ..ops.time_embedding import timestep_embedding_sincos
+from ..parallel.mesh import batch_sum
 from .base import FlowMatchingTask
 
 
@@ -192,9 +193,10 @@ class MultitaskFlowMatchingModule(SharedBackboneTask):
         """Hard-threshold Dice and IoU over the batch (JAX ``:190-199``)."""
         pred = (torch.sigmoid(seg_logits) > 0.5).to(torch.float32)
         gt = target.to(torch.float32)
-        inter = torch.sum(pred * gt)
-        union_sum = torch.sum(pred) + torch.sum(gt)
-        union_or = torch.sum(torch.clamp(pred + gt, 0.0, 1.0))
+        inter, pred_sum, gt_sum, union_or = batch_sum(torch.stack([
+            torch.sum(pred * gt), torch.sum(pred), torch.sum(gt), torch.sum(torch.clamp(pred + gt, 0.0, 1.0))
+        ]))
+        union_sum = pred_sum + gt_sum
         return {"dice_coef": (2.0 * inter + 1e-7) / (union_sum + 1e-7), "iou": (inter + 1e-7) / (union_or + 1e-7)}
 
     def predict_mask(self, seg_logits: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,15 @@ checkpoint. ``ckpt_path=wandb-artifact://<ref>`` resumes from a logged model
 (``trainer.accelerator=cpu``); an accelerator other than auto / gpu / cuda /
 cpu raises. With ``hparams_search=…`` attached, :func:`sweep.run_study` runs
 the study, one training run a trial.
+
+Data parallel, one process a device (the JAX package's launch variables work too):
+
+    python -m stain2stain_tpu_torch.train experiment=smoke_synthetic trainer=ddp_sim   # 2 gloo ranks on the CPU
+    torchrun --nproc_per_node=N -m stain2stain_tpu_torch.train trainer=ddp trainer.devices=N ...
+
+:func:`main` first joins the process group the launch variables describe;
+without one, ``trainer.devices`` N > 1 starts ranks 1…N−1 from this command
+line (:mod:`.parallel.launch`). ``data.batch_size`` is the global batch.
 """
 
 from __future__ import annotations
@@ -22,6 +31,8 @@ from pathlib import Path
 from typing import Optional
 
 from .config import Config, config_main, instantiate
+from .parallel.distributed import maybe_initialize_distributed
+from .parallel.launch import launch_processes, stop_processes
 from .sweep import run_study
 from .training.loggers import artifact_cache_dir
 from .utils.pylogger import RankedLogger
@@ -33,6 +44,7 @@ from .utils.utils import (
     instantiate_loggers,
     instantiate_task,
     log_hyperparameters,
+    share_output_dir,
     task_wrapper,
 )
 
@@ -123,11 +135,21 @@ def train(cfg: Config) -> tuple[dict, dict]:
 
 @config_main(config_path="../configs", config_name="train.yaml")
 def main(cfg: Config) -> Optional[float]:
-    extras(cfg)
+    maybe_initialize_distributed()
     if cfg.get("sweeper"):
+        extras(cfg)
         return run_study(cfg, lambda c: train(c)[0])
-    metric_dict, _ = train(cfg)
-    return get_metric_value(metric_dict, cfg.get("optimized_metric"))
+    children = launch_processes(cfg["trainer"], bool(cfg.get("runtime", {}).get("command_line")))
+    try:
+        share_output_dir(cfg)
+        extras(cfg)
+        metric_dict, _ = train(cfg)
+        value = get_metric_value(metric_dict, cfg.get("optimized_metric"))
+    except BaseException:
+        stop_processes(children, failed=True)
+        raise
+    stop_processes(children)
+    return value
 
 
 if __name__ == "__main__":

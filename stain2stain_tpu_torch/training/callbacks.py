@@ -4,6 +4,11 @@ ModelCheckpoint (monitor / top-k / last / every_n_epochs / filename
 patterns), EarlyStopping (patience / min_delta / check_finite / thresholds),
 ModelSummary, ProgressBar, LearningRateMonitor and the epoch-end ImageLogger,
 with the JAX package's config surface and semantics.
+
+With several processes the hooks run on every rank: their decisions read
+``callback_metrics``, which are means over the ranks and so the same
+everywhere, and the checkpoint save is collective. Files, deletions and
+logger calls are rank 0's (JAX ``callbacks.py:114-118``).
 """
 
 from __future__ import annotations
@@ -85,9 +90,7 @@ class ModelCheckpoint(Callback):
         self.last_model_path: str = ""
 
     def _dir(self, trainer) -> Path:
-        d = Path(self.dirpath) if self.dirpath else Path(trainer.default_root_dir) / "checkpoints"
-        d.mkdir(parents=True, exist_ok=True)
-        return d
+        return Path(self.dirpath) if self.dirpath else Path(trainer.default_root_dir) / "checkpoints"
 
     def _better(self, a: float, b: float) -> bool:
         return a < b if self.mode == "min" else a > b
@@ -126,10 +129,11 @@ class ModelCheckpoint(Callback):
             self.kept.sort(key=lambda sp: sp[0], reverse=(self.mode == "max"))
             while self.save_top_k != -1 and len(self.kept) > self.save_top_k:
                 _, drop = self.kept.pop()
-                if drop != path and not any(pa == drop for _, pa in self.kept) and Path(drop).exists():
+                if (trainer.is_global_zero and drop != path and not any(pa == drop for _, pa in self.kept)
+                        and Path(drop).exists()):
                     shutil.rmtree(drop, ignore_errors=True)
             self.best_model_score, self.best_model_path = self.kept[0]
-            if self.log_model:
+            if self.log_model and trainer.is_global_zero:
                 for logger in trainer.loggers:
                     logger.log_model(path, {"epoch": epoch, self.monitor: score})
             if self.verbose:
@@ -301,9 +305,12 @@ class ImageLogger(Callback):
             or (trainer.current_epoch + 1) % self.every_n_epochs
         ):
             return
+        # every rank draws (the counter stays in step for a resume); rank 0
+        # renders, on its own rows: the sampler runs no collective (whole
+        # parameters on every rank, BatchNorm in eval mode)
         generator = trainer.next_generator()
         batch = trainer.peek_val_batch() or trainer.peek_train_batch()
-        if batch is None:
+        if batch is None or not trainer.is_global_zero:
             return
         panels = task.render_panels(batch, generator, num_steps=self.num_steps)
         for logger in trainer.loggers:

@@ -12,11 +12,16 @@
   ``$WANDB_CACHE_DIR`` layout that ``train._resolve_ckpt_path`` reads for a
   ``wandb-artifact://`` reference; with the wandb client installed it runs
   ``wandb.init`` and logs the checkpoint as an artifact instead.
+
+Every logger creates and writes files on rank 0 only (Lightning's
+``rank_zero_only``): on another rank of a data-parallel run its constructor
+makes no directory and its methods do nothing.
 """
 
 from __future__ import annotations
 
 import csv
+import functools
 import json
 import os
 import shutil
@@ -25,6 +30,18 @@ from pathlib import Path
 from typing import Any, Optional
 
 import numpy as np
+
+from ..parallel.distributed import launch_rank
+
+
+def rank_zero_only(fn):
+    """``fn`` on rank 0; a no-op returning None on any other rank."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        return fn(*args, **kwargs) if launch_rank() == 0 else None
+
+    return wrapped
 
 
 class Logger:
@@ -62,14 +79,17 @@ class CSVLogger(Logger):
             existing = [int(p.name.split("_")[1]) for p in base.glob("version_*") if p.name.split("_")[-1].isdigit()]
             version = max(existing, default=-1) + 1
         self.log_dir = base / f"version_{version}"
-        self.log_dir.mkdir(parents=True, exist_ok=True)
+        if launch_rank() == 0:
+            self.log_dir.mkdir(parents=True, exist_ok=True)
         self.prefix = prefix
         self._rows: list[dict] = []
         self._fields: set[str] = {"step"}
 
+    @rank_zero_only
     def log_hyperparams(self, params: dict) -> None:
         (self.log_dir / "hparams.json").write_text(json.dumps(params, indent=2, default=str))
 
+    @rank_zero_only
     def log_metrics(self, metrics: dict, step: int) -> None:
         row = {"step": step}
         for k, v in metrics.items():
@@ -80,6 +100,7 @@ class CSVLogger(Logger):
         if len(self._rows) % self.flush_every == 0:
             self._write()
 
+    @rank_zero_only
     def _write(self) -> None:
         with open(self.log_dir / "metrics.csv", "w", newline="") as f:
             writer = csv.DictWriter(f, fieldnames=sorted(self._fields))
@@ -102,11 +123,16 @@ class FileLogger(Logger):
 
     def __init__(self, save_dir: str = "logs", name: str = "file"):
         self.log_dir = Path(save_dir) / name
-        self.log_dir.mkdir(parents=True, exist_ok=True)
         self.path = self.log_dir / "metrics.jsonl"
-        self.path.touch()
         self.name = name
+        self._create()
 
+    @rank_zero_only
+    def _create(self) -> None:
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self.path.touch()
+
+    @rank_zero_only
     def _append(self, record: dict) -> None:
         with open(self.path, "a") as f:
             f.write(json.dumps(record, default=str) + "\n")
@@ -120,6 +146,7 @@ class FileLogger(Logger):
     def log_model(self, ckpt_path: str, metadata: Optional[dict] = None) -> None:
         self._append({"model_artifact": str(ckpt_path), **(metadata or {})})
 
+    @rank_zero_only
     def log_images(self, tag: str, images: dict, step: int) -> None:
         from PIL import Image
 
@@ -143,22 +170,28 @@ class TensorBoardLogger(Logger):
         from tensorboardX import SummaryWriter
 
         self.log_dir = Path(save_dir) / name
-        self.log_dir.mkdir(parents=True, exist_ok=True)
-        self.writer = SummaryWriter(str(self.log_dir))
         self.prefix = prefix
+        self.writer = None
+        if launch_rank() == 0:
+            self.log_dir.mkdir(parents=True, exist_ok=True)
+            self.writer = SummaryWriter(str(self.log_dir))
 
+    @rank_zero_only
     def log_hyperparams(self, params: dict) -> None:
         self.writer.add_text("hparams", json.dumps(params, indent=2, default=str))
 
+    @rank_zero_only
     def log_metrics(self, metrics: dict, step: int) -> None:
         for k, v in metrics.items():
             self.writer.add_scalar(f"{self.prefix}{k}", float(v), step)
 
+    @rank_zero_only
     def log_images(self, tag: str, images: dict, step: int) -> None:
         for name, imgs in images.items():
             for i, img in enumerate(np.asarray(imgs)[:8]):
                 self.writer.add_image(f"{tag}/{name}_{i}", img, step, dataformats="HWC")
 
+    @rank_zero_only
     def finalize(self, status: str = "success") -> None:
         self.writer.close()
 
@@ -189,7 +222,7 @@ def _service_logger(service: str):
                 warnings.warn(f"{service} is not installed; {service} logging degrades to a local JSONL file.",
                               stacklevel=2)
             super().__init__(save_dir=str(save_dir), name=service)
-            if available and service == "wandb":
+            if available and service == "wandb" and launch_rank() == 0:
                 import wandb
 
                 self._client = wandb.init(
@@ -213,6 +246,7 @@ def _service_logger(service: str):
             run_name = self.kwargs.get("name") or getattr(self._client, "id", None) or "run"
             return f"{self.project}/model-{run_name}:{alias}"
 
+        @rank_zero_only
         def log_model(self, ckpt_path: str, metadata: Optional[dict] = None) -> None:
             """Record the checkpoint with its ``artifact_ref``; upload it as a
             model artifact with the wandb client, else mirror it (a directory

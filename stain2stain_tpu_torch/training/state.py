@@ -7,6 +7,13 @@ file written before heads existed loads unchanged) and ``<path>/meta.json``
 with the JAX package's keys (epoch, global_step, callback_metrics, scheduler,
 base_lr, callbacks, rng), so resume is exact. Loading uses
 ``weights_only=True``: a file holding arbitrary pickled objects is refused.
+
+With several processes every rank calls :meth:`CheckpointIO.save`: the state
+dict is gathered whole (the sharded optimizer's moments, a collective), rank
+0 alone writes, and every rank waits at a host barrier until the files are
+there (JAX ``state.py:59-91``). :meth:`CheckpointIO.restore` loads on every
+rank. The files hold whole tensors only, so a checkpoint of ``fsdp=2`` on two
+ranks resumes in one process and the other way round.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ from typing import Any
 
 import torch
 from torch import nn
+
+from ..parallel.distributed import host_barrier, process_index
 
 
 @dataclass
@@ -40,11 +49,14 @@ class CheckpointIO:
 
     def save(self, path: str | Path, state: TrainState, meta: dict) -> None:
         path = Path(path).absolute()
-        path.mkdir(parents=True, exist_ok=True)
-        tmp = path / "state.pt.tmp"
-        torch.save(state.state_dict(), tmp)
-        os.replace(tmp, path / "state.pt")  # a reader never sees a partial file
-        (path / "meta.json").write_text(json.dumps(_jsonable(meta), indent=2))
+        whole = state.state_dict()  # collective under a sharded optimizer: every rank calls save
+        if process_index() == 0:
+            path.mkdir(parents=True, exist_ok=True)
+            tmp = path / "state.pt.tmp"
+            torch.save(whole, tmp)
+            os.replace(tmp, path / "state.pt")  # a reader never sees a partial file
+            (path / "meta.json").write_text(json.dumps(_jsonable(meta), indent=2))
+        host_barrier("checkpoint_save")
 
     def restore(self, path: str | Path, state: TrainState, weights_only: bool = False) -> dict:
         """Load the checkpoint into ``state`` (the model only with

@@ -1,5 +1,5 @@
-"""The Trainer: explicit PyTorch train and eval loops on one device
-(counterpart of ``stain2stain_tpu/training/trainer.py``).
+"""The Trainer: explicit PyTorch train and eval loops, in one process or one
+process a device (counterpart of ``stain2stain_tpu/training/trainer.py``).
 
 - one train step: batch prep and shared augmentation on the device, forward
   and backward (gradient accumulation over micro-batches, global-norm
@@ -26,26 +26,63 @@ would (the JAX trainer folds the step into its key, ``trainer.py:317``).
 Eval batch ``i`` draws from a generator seeded from (seed, i), so val/test
 losses reproduce exactly across trainers.
 
-Config knobs: ``accelerator`` is ``auto``/``gpu``/``cuda`` (the CUDA card;
-raises without one) or ``cpu``; anything else raises. One device only:
-``devices`` > 1, ``num_nodes`` > 1 or ``fsdp`` > 1 raise. ``precision``
-bf16 variants mean bf16 compute with f32 parameters (the UNet's ``dtype``,
-``trainer.py:255-267``). ``strategy``, ``steps_per_execution`` and
-``prng_impl`` are accepted for config parity and have no effect: they select
-JAX dispatch and PRNG implementations.
+Data parallelism (a process group is up, :mod:`..parallel`): each rank holds
+rows ``rank::W`` of every global batch and the trainer keeps the JAX
+package's global-batch semantics by hand, where JAX's global arrays give them:
+
+- the generators know the rank's rows: per-example draws are made for the
+  global batch and sliced, so a W-rank step equals the one-process step on
+  the same global batch (dropout masks excepted: ``ops/dropout.draw_seed``);
+- the task's loss runs through ``DistributedDataParallel`` (one module over
+  the net and the task's heads), which averages the gradients over the
+  ranks; accumulation micro-batches but the last run under ``no_sync``; the
+  clipping norm is then the global one on every rank;
+- inside the train and eval steps (:func:`~..parallel.mesh.sharded_batch`)
+  the sums a loss, a metric or a BatchNorm normalizes by span every rank's
+  rows (Dice, the ROI means, the BatchNorm statistics);
+- ``fsdp`` > 1 shards the optimizer's moments over the mesh's fsdp dim
+  (:class:`~..parallel.zero.ShardedOptimizer`, ZeRO stage 1);
+- logged train metrics and every eval batch's metrics are means over the
+  ranks, eval batches weighted by their real example count
+  (``loader.real_batch_size``), so ``val/loss`` is one number on every rank
+  and the checkpoint, early-stopping and plateau decisions agree;
+- rank 0 alone runs ``prepare_data`` (the others wait at a host barrier),
+  prints, logs and writes files; every rank calls the checkpoint save (the
+  gather is collective) and restores.
+
+Config knobs: ``accelerator`` is ``auto``/``gpu``/``cuda`` (the card
+``LOCAL_RANK``; raises without one) or ``cpu``; anything else raises.
+``devices`` and ``num_nodes`` ask for processes, which the entry point starts
+(``train.py``); a Trainer without a process group that is asked for more than
+one device warns and trains on one, as JAX uses the devices present
+(``trainer.py:242-253``). ``fsdp`` that does not divide the world size falls
+back to 1 (JAX ``trainer.py:251``). ``precision`` bf16 variants mean bf16
+compute with f32 parameters (the UNet's ``dtype``, ``trainer.py:255-267``).
+``strategy``, ``sync_batchnorm``, ``steps_per_execution`` and ``prng_impl``
+are accepted for config parity and have no effect: the BatchNorms are synced
+whenever there are several ranks, and the others select JAX dispatch and
+PRNG implementations.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import time
+import warnings
 from pathlib import Path
 from typing import Any, Optional, Sequence
 
 import torch
+import torch.distributed as dist
+from torch import nn
 
 from .._device import resolve_device
+from ..parallel.distributed import host_barrier, is_initialized, local_rank, process_count, process_index
+from ..parallel.launch import requested_devices
+from ..parallel.mesh import create_mesh, sharded_batch, sharded_generator
+from ..parallel.zero import ShardedOptimizer
 from ..utils.pylogger import RankedLogger
 from ..utils.seed import current_seed
 from .callbacks import Callback, ModelCheckpoint
@@ -63,18 +100,26 @@ _BF16_PRECISION = ("bf16", "bf16-mixed", "bf16-true", "16-mixed", "16", "16-true
 _TRAIN_STREAM, _EVAL_STREAM, _AUX_STREAM = 0, 1, 2
 
 
-def _one_device(devices: Any) -> bool:
-    if devices in (None, "auto", -1, "-1"):
-        return True
-    if isinstance(devices, (list, tuple)):
-        return len(devices) == 1
-    return int(devices) == 1
-
-
-def seeded_generator(seed: int, stream: int, index: int) -> torch.Generator:
-    """A CPU generator that depends only on (seed, stream, index)."""
+def seeded_generator(seed: int, stream: int, index: int, rows: tuple = (0, 1)) -> torch.Generator:
+    """A CPU generator that depends only on (seed, stream, index); ``rows``
+    (this rank, the world size) makes its per-example draws global-batch ones."""
     mixed = (seed * 0x9E3779B97F4A7C15 + stream * 0xBF58476D1CE4E5B9 + index) % 2**64
-    return torch.Generator(device="cpu").manual_seed(mixed)
+    return sharded_generator(mixed, rows)
+
+
+class _TaskLoss(nn.Module):
+    """The task's training loss as one module over the net and the task's
+    heads: what ``DistributedDataParallel`` wraps, so every trained parameter
+    is averaged over the ranks."""
+
+    def __init__(self, task):
+        super().__init__()
+        self.net = task.net
+        self.heads = nn.ModuleDict(task.heads)
+        self.task = task  # not a module: its net and heads are the submodules above
+
+    def forward(self, batch: tuple, generator: torch.Generator):
+        return self.task.loss_and_metrics(batch, generator, train=True)
 
 
 class Trainer:
@@ -121,14 +166,29 @@ class Trainer:
                 f"trainer.accelerator={accelerator!r} is not supported by the port: it trains on one "
                 "CUDA card (trainer.accelerator=auto, gpu or cuda) or on the CPU (trainer=cpu)"
             )
-        if not _one_device(devices) or int(num_nodes or 1) > 1 or int(fsdp or 1) > 1:
-            raise ValueError(
-                f"the port trains on one device: got trainer.devices={devices!r}, "
-                f"num_nodes={num_nodes!r}, fsdp={fsdp!r}"
-            )
         if precision not in _FULL_PRECISION and str(precision) not in _BF16_PRECISION:
             raise ValueError(f"trainer.precision={precision!r} is not supported (32 or a bf16 variant)")
-        self.device = resolve_device(_ACCELERATORS[accel])
+        self.distributed = is_initialized()  # a process group is up (a world of 1 too: torchrun -n 1)
+        self.rank, self.world = process_index(), process_count()
+        asked = requested_devices(devices) * max(1, int(num_nodes or 1))
+        if not self.distributed and asked > 1:
+            log.warning(
+                f"Requested {asked} devices (trainer.devices={devices!r}, num_nodes={num_nodes!r}) but no process "
+                "group is up; training on one device (the entry point or torchrun starts one process a device)"
+            )
+        elif self.distributed and asked != self.world:
+            log.info(f"trainer.devices={devices!r}: the process group's {self.world} ranks train")
+        self.fsdp = max(1, int(fsdp or 1))
+        if self.world % self.fsdp:
+            log.warning(f"fsdp={self.fsdp} does not divide the world size {self.world}; using fsdp=1")
+            self.fsdp = 1
+        self.fsdp_min_size = fsdp_min_size
+        device = _ACCELERATORS[accel]
+        if device == "cuda" and self.distributed:
+            device = f"cuda:{local_rank()}"
+        self.device = resolve_device(device)
+        if self.device.index is not None:
+            torch.cuda.set_device(self.device)
         self.default_root_dir = str(default_root_dir or Path.cwd() / "logs")
         self.min_epochs = min_epochs or 0
         self.max_epochs = max_epochs
@@ -167,6 +227,8 @@ class Trainer:
         self._ckpt_io = CheckpointIO()
         self._peek_train = None
         self._peek_val = None
+        self._ddp: Optional[nn.Module] = None
+        self._mesh = None
 
         if fast_dev_run:
             self.max_epochs = 1
@@ -182,6 +244,14 @@ class Trainer:
 
     # ------------------------------------------------------------------ utils
     @property
+    def is_global_zero(self) -> bool:
+        return self.rank == 0
+
+    @property
+    def world_size(self) -> int:
+        return self.world
+
+    @property
     def current_lr(self) -> Optional[float]:
         return None if self.state is None else get_learning_rate(self.state.optimizer)
 
@@ -190,7 +260,8 @@ class Trainer:
         return next((cb for cb in self.callbacks if isinstance(cb, ModelCheckpoint)), None)
 
     def print(self, *args: Any) -> None:
-        print(*args, flush=True)
+        if self.is_global_zero:
+            print(*args, flush=True)
 
     def next_generator(self) -> torch.Generator:
         """A fresh generator for draws outside the step counter (image panels)."""
@@ -198,9 +269,28 @@ class Trainer:
         return seeded_generator(current_seed(), _AUX_STREAM, self._aux_draws)
 
     def log_metrics(self, metrics: dict) -> None:
+        """Record ``metrics`` (already means over the ranks) on every rank;
+        the loggers write on rank 0 (JAX ``trainer.py:217-225``)."""
         self.callback_metrics.update({k: float(v) for k, v in metrics.items()})
+        if not self.is_global_zero:
+            return
         for logger in self.loggers:
             logger.log_metrics(metrics, self.global_step)
+
+    def _rows(self) -> tuple:
+        return (self.rank, self.world)
+
+    def _sharded(self):
+        """The train or eval step's batch spans the ranks (a no-op in one process)."""
+        return sharded_batch(dist.group.WORLD if self.world > 1 else None)
+
+    def _mean_over_ranks(self, values: list) -> list[float]:
+        """Per-position means over the ranks of equal-length lists of scalars."""
+        if self.world == 1 or not values:
+            return [float(v) for v in values]
+        t = torch.tensor([float(v) for v in values], dtype=torch.float64)
+        dist.all_reduce(t)
+        return (t / self.world).tolist()
 
     def peek_train_batch(self):
         return self._peek_train
@@ -228,29 +318,35 @@ class Trainer:
 
     def _init_state(self, task) -> None:
         optimizer, self._scheduler = task.configure_optimizers()
+        if self.fsdp > 1:
+            if self._mesh is None:
+                self._mesh = create_mesh(self.world, self.fsdp, device_type=self.device.type)
+            optimizer = ShardedOptimizer(optimizer, self._mesh, min_size=self.fsdp_min_size)
         self.state = TrainState(step=0, net=task.net, optimizer=optimizer, heads=dict(task.heads))
         if self._base_lr is None:
             self._base_lr = get_learning_rate(optimizer)
 
+    def _wrap_ddp(self, task) -> None:
+        """``DistributedDataParallel`` over the task's loss whenever a process
+        group is up; it broadcasts rank 0's parameters and buffers once. The
+        BatchNorms keep their buffers equal by their synced statistics, so
+        they are not broadcast every step."""
+        if not self.distributed:
+            return
+        from torch.nn.parallel import DistributedDataParallel
+
+        device_ids = [self.device.index] if self.device.type == "cuda" else None
+        with warnings.catch_warnings():  # newer torch renames broadcast_buffers; older lacks the new name
+            warnings.simplefilter("ignore", FutureWarning)
+            self._ddp = DistributedDataParallel(_TaskLoss(task), device_ids=device_ids, broadcast_buffers=False)
+
     def _train_step(self, task, batch: tuple, augment: Optional[dict]) -> dict:
         state = self.state
-        generator = seeded_generator(current_seed(), _TRAIN_STREAM, state.step)
+        generator = seeded_generator(current_seed(), _TRAIN_STREAM, state.step, self._rows())
         prepared = task.prepare_batch(task.device_fields(batch), generator, train=True, augment=augment)
-        accum = self.accumulate_grad_batches
-        if accum == 1:
-            loss, metrics = task.loss_and_metrics(prepared, generator, train=True)
-            loss.backward()
-        else:
-            if prepared[0].shape[0] % accum:
-                raise ValueError(
-                    f"batch of {prepared[0].shape[0]} does not split into accumulate_grad_batches={accum}"
-                )
-            metrics = {}
-            for micro in zip(*(x.chunk(accum) for x in prepared)):
-                loss, m = task.loss_and_metrics(micro, generator, train=True)
-                (loss / accum).backward()  # the mean of the micro-batch gradients
-                for k, v in m.items():
-                    metrics[k] = metrics.get(k, 0.0) + v / accum
+        with self._sharded():
+            metrics = self._forward_backward(task, prepared, generator)
+        # DDP has averaged the gradients over the ranks by now: the norm is the global one
         if self.gradient_clip_val:
             grads = [p.grad for p in task.trainable_parameters() if p.grad is not None]
             gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32).square()) for g in grads))
@@ -262,11 +358,40 @@ class Trainer:
         state.step += 1
         return metrics
 
+    def _forward_backward(self, task, prepared: tuple, generator: torch.Generator) -> dict:
+        """Loss and gradients of one prepared batch, over ``accumulate_grad_batches`` micro-batches."""
+        accum = self.accumulate_grad_batches
+        if self._ddp is not None:
+            loss_fn = self._ddp
+        else:
+            def loss_fn(b, g):
+                return task.loss_and_metrics(b, g, train=True)
+        if accum == 1:
+            loss, metrics = loss_fn(prepared, generator)
+            loss.backward()
+        else:
+            if prepared[0].shape[0] % accum:
+                raise ValueError(
+                    f"batch of {prepared[0].shape[0]} does not split into accumulate_grad_batches={accum}"
+                )
+            metrics = {}
+            for k, micro in enumerate(zip(*(x.chunk(accum) for x in prepared))):
+                # the gradient all-reduce runs once, in the last micro-batch's backward
+                last = k == accum - 1
+                with contextlib.nullcontext() if last or self._ddp is None else self._ddp.no_sync():
+                    loss, m = loss_fn(micro, generator)
+                    (loss / accum).backward()  # the mean of the micro-batch gradients
+                for name, v in m.items():
+                    metrics[name] = metrics.get(name, 0.0) + v / accum
+        return metrics
+
     # ------------------------------------------------------------------- fit
     def fit(self, model, datamodule, ckpt_path: Optional[str] = None) -> None:
         task = model
         self._prepare_task(task)
-        datamodule.prepare_data()
+        if self.is_global_zero:  # side effects (downloads, split files) once, read by every rank after
+            datamodule.prepare_data()
+        host_barrier("prepare_data")
         datamodule.setup("fit")
         train_loader = datamodule.train_dataloader()
         if train_loader is None:
@@ -275,6 +400,7 @@ class Trainer:
         augment = getattr(datamodule, "train_augment", None)
         self._peek_train = next(iter(train_loader))
         self._init_state(task)
+        self._wrap_ddp(task)
 
         start_epoch = self._restore(ckpt_path) if ckpt_path else 0
         for cb in self.callbacks:
@@ -330,10 +456,12 @@ class Trainer:
         profiler.start()
         return profiler
 
-    def _stop_profiler(self, profiler) -> Path:
-        """Stop ``profiler`` and write its Chrome trace under ``<default_root_dir>/profile``."""
+    def _stop_profiler(self, profiler) -> Optional[Path]:
+        """Stop ``profiler`` and write its Chrome trace under ``<default_root_dir>/profile`` (rank 0)."""
         self._sync()
         profiler.stop()
+        if not self.is_global_zero:
+            return None
         profile_dir = Path(self.default_root_dir) / "profile"
         profile_dir.mkdir(parents=True, exist_ok=True)
         trace = profile_dir / f"fit-{time.strftime('%Y%m%d-%H%M%S')}-{os.getpid()}.pt.trace.json"
@@ -363,14 +491,16 @@ class Trainer:
                 self._sync()
                 step_times.append(time.perf_counter() - t0)
             if self.detect_anomaly:
-                loss_val = float(metrics["loss"])
+                loss_val = self._mean_over_ranks([metrics["loss"]])[0]
                 if not math.isfinite(loss_val):
                     raise FloatingPointError(f"Non-finite loss at step {self.global_step}: {loss_val}")
             self.global_step += 1
             for k, v in metrics.items():
                 epoch_metrics.setdefault(k, []).append(v)
             if self.global_step % self.log_every_n_steps == 0:
-                self.log_metrics({f"train/{k}": float(v) for k, v in metrics.items()})
+                keys = sorted(metrics)
+                self.log_metrics(dict(zip((f"train/{k}" for k in keys),
+                                          self._mean_over_ranks([metrics[k] for k in keys]))))
             for cb in self.callbacks:
                 cb.on_train_batch_end(self, task, metrics)
             done = i + 1
@@ -382,11 +512,9 @@ class Trainer:
                     cb.on_validation_epoch_end(self, task)
             if self.should_stop or (self.max_steps > 0 and self.global_step >= self.max_steps):
                 break
-        means = {
-            f"train/{k}": float(torch.stack([torch.as_tensor(v, dtype=torch.float32) for v in vs]).mean())
-            for k, vs in epoch_metrics.items()
-        }
-        self.log_metrics(means)
+        keys = sorted(epoch_metrics)
+        local = [torch.stack([torch.as_tensor(v, dtype=torch.float32) for v in epoch_metrics[k]]).mean() for k in keys]
+        self.log_metrics(dict(zip((f"train/{k}" for k in keys), self._mean_over_ranks(local))))
         if step_times:
             ordered = sorted(step_times)
             self.print(
@@ -402,23 +530,30 @@ class Trainer:
             n_batches = min(n_batches, max_batches)
         agg: dict[str, list] = {}
         weights: list[int] = []
+        real_of = getattr(loader, "real_batch_size", None)
         with torch.no_grad():
             for i, batch in enumerate(loader):
                 if i >= n_batches:
                     break
                 if prefix == "val":
                     self._peek_val = batch
-                generator = seeded_generator(current_seed(), _EVAL_STREAM, i)
+                generator = seeded_generator(current_seed(), _EVAL_STREAM, i, self._rows())
                 prepared = task.prepare_batch(task.device_fields(batch), generator, train=False)
-                _, metrics = task.loss_and_metrics(prepared, generator, train=False)
-                weights.append(prepared[0].shape[0])
+                with self._sharded():
+                    _, metrics = task.loss_and_metrics(prepared, generator, train=False)
+                weights.append(real_of(i) if callable(real_of) else prepared[0].shape[0] * self.world)
                 for k, v in metrics.items():
                     agg.setdefault(k, []).append(v)
-        # example-weighted means: a short final batch counts by its size
+        # each batch's metrics: the mean over the ranks' equal slices (the
+        # padded global batch's mean); then example-weighted means over the
+        # batches, a short final batch counting by its real size
+        keys = sorted(agg)
+        per_batch = self._mean_over_ranks([v for k in keys for v in agg[k]])
         w = torch.tensor(weights, dtype=torch.float64)
         means = {
-            f"{prefix}/{k}": float((torch.stack([torch.as_tensor(v) for v in vs]).double().cpu() * w).sum() / w.sum())
-            for k, vs in agg.items()
+            f"{prefix}/{k}": float((torch.tensor(per_batch[j * len(w):(j + 1) * len(w)], dtype=torch.float64) * w).sum()
+                                   / w.sum())
+            for j, k in enumerate(keys)
         }
         if not self.sanity_checking:
             self.log_metrics(means)

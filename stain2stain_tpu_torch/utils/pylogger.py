@@ -1,13 +1,16 @@
 """Rank-aware logging (the port's copy of ``stain2stain_tpu/utils/pylogger.py``).
 
 Messages are prefixed with the process rank and can be restricted to rank 0
-or an explicit rank. The rank comes from ``torch.distributed`` when a process
-group is up, else 0.
+or an explicit rank. The rank is read at every message: from
+``torch.distributed`` when a process group is up, else from the launch
+variables (``RANK``, the JAX package's ``PROCESS_ID``), else 0, so a
+process started for rank 1 logs as rank 1 before it joins the group.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from typing import Mapping, Optional
 
 
@@ -16,7 +19,7 @@ def _rank() -> int:
 
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank()
-    return 0
+    return int(os.environ.get("RANK") or os.environ.get("PROCESS_ID") or 0)
 
 
 class RankedLogger(logging.LoggerAdapter):

@@ -9,7 +9,10 @@
 - :func:`task_wrapper` logs a task's exception and its output dir;
 - :func:`get_metric_value` reads the optimized metric;
 - :func:`log_hyperparameters` sends the config sections and parameter counts
-  to every logger.
+  to every logger;
+- :func:`share_output_dir` gives every rank rank 0's run directory.
+
+Under data parallelism files (tags, the config tree) are written by rank 0.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from pathlib import Path
 from typing import Any, Callable, Optional
 
 from ..config import Config, instantiate, select
+from ..parallel.distributed import broadcast_object, launch_rank
 from .pylogger import RankedLogger
 
 log = RankedLogger(__name__, rank_zero_only=True)
@@ -76,12 +80,14 @@ def enforce_tags(cfg: Config, save_to_file: bool = False) -> None:
         cfg["tags"] = [t.strip() for t in tags.split(",") if t.strip()]
         log.info(f"Tags: {cfg['tags']}")
     out_dir = _output_dir(cfg)
-    if save_to_file and out_dir:
+    if save_to_file and out_dir and launch_rank() == 0:
         (Path(out_dir) / "tags.log").write_text(str(list(cfg["tags"])))
 
 
 def print_config_tree(cfg: Config, resolve: bool = False, save_to_file: bool = False) -> None:
     """Print the composed config as YAML (and save it as ``config_tree.log``)."""
+    if launch_rank() != 0:
+        return
     text = cfg.to_yaml(resolve=resolve)
     print(text, flush=True)
     out_dir = _output_dir(cfg)
@@ -102,6 +108,15 @@ def extras(cfg: Config) -> None:
         enforce_tags(cfg, save_to_file=True)
     if extras_cfg.get("print_config"):
         print_config_tree(cfg, resolve=False, save_to_file=True)
+
+
+def share_output_dir(cfg: Config) -> None:
+    """Rank 0's ``runtime.output_dir`` on every rank: each process composed
+    its own timestamped directory, and checkpoint paths must agree."""
+    out_dir = select(cfg, "runtime.output_dir", default=None)
+    shared = broadcast_object(out_dir)
+    if shared != out_dir:
+        cfg["runtime.output_dir"] = shared
 
 
 def task_wrapper(task_func: Callable) -> Callable:
@@ -168,4 +183,5 @@ __all__ = [
     "task_wrapper",
     "get_metric_value",
     "log_hyperparameters",
+    "share_output_dir",
 ]

@@ -488,7 +488,8 @@ def test_every_port_module_imports_nothing_of_jax():
     for name in ("tasks.conditional_flow_matching_masked", "tasks.conditional_flow_matching_roi_loss",
                  "tasks.conditional_flow_matching_conditional_mask", "tasks.conditional_flow_matching_toggle_mask",
                  "tasks.conditional_flow_matching_aux_fraction", "models.unet_4to3", "data.paired_data_mask",
-                 "data.paired_pos_neg", "infer_conditional"):
+                 "data.paired_pos_neg", "infer_conditional", "parallel.distributed", "parallel.mesh",
+                 "parallel.zero", "parallel.launch"):
         assert f"stain2stain_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
