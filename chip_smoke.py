@@ -193,10 +193,32 @@ Phases (any failure ends the script with a non-zero exit and no result line):
     in one process with rank 0's weights; each rank's peak and the time of
     a gradient-sized gloo all-reduce. Then ``trainer=fsdp trainer.fsdp=2``
     for 2 steps: the moments sharded (``ShardedOptimizer``), the ranks equal.
-29. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5, each with ``ms`` and
+29. ``serve-sealed`` (run right after phase 6, on phase 5's net):
+    ``serving.export_generator`` seals the jittered flagship for batch 16 at
+    256 px under euler with 2 steps, under the config's dopri5 (one
+    ``while_loop`` node) and as a bf16 ``fused_conv`` net with the same
+    weights; the ``.pt2`` files are loaded by ``serving.load_generator`` in
+    a process of their own that imports no model code and run on the tile
+    batch: within 1e-6 (dopri5: 1e-5) of the direct ``generate``, K1-fwd
+    (and K2: 44 a velocity evaluation) launched as often as on the direct
+    path; the export seconds, the program's MB, the load seconds and the
+    loaded and direct tile-batch ms.
+30. ``convert-ckpt``: a Lightning-layout ``.ckpt`` of the same net through
+    ``python -m stain2stain_tpu_torch.convert_ckpt``; ``load_task`` on the
+    directory generates the tile batch bit for bit as the source task did;
+    ``export_model`` on the directory writes phase 29's euler program (every
+    member of the archive the same bytes).
+31. ``data-sanity``: the entry point of ``stain2stain_tpu_torch.data_sanity``
+    (``main(argv)``) on a synthetic masked tree (exit 0, no error) and on a
+    copy without one tile (exit 1, the file in ``missing_files``).
+32. ``train-s2b`` (after phase 25, under the expandable segments set before
+    phase 16): phase 8's operating point with ``+model.net.s2b_conv=2``: its
+    first loss within 1e-5 relative of phase 8's, the same K1 launches; its
+    step and peak memory beside phase 8's.
+33. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5, each with ``ms`` and
     ``queued_ms``, and launches by path, the multitask paths', phases
-    22–25's and 27–28's included), the seconds of every phase, the card
-    line, and ``{"ok": true, "device": ...}`` as the last line.
+    22–25's, 27–28's and 29–32's included), the seconds of every phase, the
+    card line, and ``{"ok": true, "device": ...}`` as the last line.
 
 With ``--profile`` it also profiles a tile batch and a request, and a train
 step of each path (``phase_profile_train``), the binary multitask study's
@@ -281,7 +303,9 @@ BOUND_MASK_TOL = 1e-6
 # synthetic digits, through the entry point; the config tree is not printed (once a trial, 20 times)
 MNIST_SWEEP = ["-m", "hparams_search=mnist_optuna", "experiment=example", "trainer.accelerator=gpu",
                "extras.print_config=false"]
-MNIST_SWEEP_CUT: list = []  # the config's full study
+# the config's 20 trials cut to 10 to keep the script inside its time limit with phases 29-32; every trial of the
+# full study reached val/acc 1.0 on the synthetic digits, so the cut study checks the same machinery
+MNIST_SWEEP_CUT: list = ["sweeper.n_trials=10"]
 
 
 def log(msg: str) -> None:
@@ -818,6 +842,32 @@ def _png(img) -> bytes:
     return buf.getvalue()
 
 
+def jittered_flagship(cfg):
+    """The flagship UNet of ``cfg.model.net`` on the card from seed 0, every
+    parameter jittered (std 0.02, generator seed 1)."""
+    import torch
+
+    from stain2stain_tpu_torch.config import instantiate
+
+    torch.manual_seed(0)
+    net = instantiate(cfg.model.net, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(0.02 * torch.randn(p.shape, device=p.device, generator=gen))
+    return net
+
+
+def tile_batch(batch: int = 16, tile: int = 256):
+    """Phase 5's dopri5 tile batch: ``batch`` test images in [-1, 1] on the card."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(
+        np.stack([_test_image(tile, tile, seed=100 + i) for i in range(batch)]).astype(np.float32) / 127.5 - 1.0
+    ).cuda()
+
+
 def phase_slice(card: str) -> tuple[dict, object]:
     import numpy as np
     import torch
@@ -833,12 +883,7 @@ def phase_slice(card: str) -> tuple[dict, object]:
     torch.backends.cuda.matmul.allow_tf32 = False  # torch's defaults for serving:
     torch.backends.cudnn.allow_tf32 = True  # f32 matmul, TF32 cuDNN convs
     cfg = compose(REPO / "configs", "infer.yaml", ["model=conditional_flow_matching"])
-    torch.manual_seed(0)
-    net = instantiate(cfg.model.net, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    with torch.no_grad():
-        for p in net.parameters():
-            p.add_(0.02 * torch.randn(p.shape, device=p.device, generator=gen))
+    net = jittered_flagship(cfg)
     n_params = sum(p.numel() for p in net.parameters())
     log(f"slice: flagship UNet {n_params} parameters on {card}, every parameter jittered (std 0.02)")
 
@@ -896,9 +941,7 @@ def phase_slice(card: str) -> tuple[dict, object]:
 
     # the config's own solver (dopri5, atol/rtol 1e-4) on one tile batch
     dopri_task = ConditionalFlowMatchingModule(net=net, solver=instantiate(cfg.model.solver))
-    src = torch.from_numpy(
-        np.stack([_test_image(tile, tile, seed=100 + i) for i in range(batch)]).astype(np.float32) / 127.5 - 1.0
-    ).cuda()
+    src = tile_batch(batch, tile)
     before = evals[0]
     t2 = time.perf_counter()
     x1 = dopri_task.generate(src, num_steps=100)
@@ -1083,9 +1126,10 @@ TRAIN_PATHS = {
     "train-wandb": (WANDB_OVERRIDES, "data"),
     "train-resume": (WANDB_OVERRIDES + [f"ckpt_path=wandb-artifact://{WANDB_REF}", "trainer.max_epochs=2",
                                         "+trainer.profiler=advanced"], "data"),
+    "train-s2b": (TRAIN_F32_OVERRIDES + ["+model.net.s2b_conv=2"], "data-512"),
 }
 MULTITASK_PATHS = ("train-multitask", "train-multitask-multiclass")  # the shared-encoder nets: no attention
-F32_PATHS = ("train-f32", "train-remat", "train-any2any", "train-masked-conditioned", "train-masked", "train-roi",
+F32_PATHS = ("train-f32", "train-remat", "train-s2b", "train-any2any", "train-masked-conditioned", "train-masked", "train-roi",
              "train-pos-neg") + MULTITASK_PATHS
 PATH_STEPS = {"train-masked": 4, "train-roi": 4, "train-pos-neg": 4, "train-wandb": 4, "train-resume": 4}  # 8 otherwise
 
@@ -2935,6 +2979,295 @@ def phase_profile_train(card: str, name: str = "profile-train") -> dict:
     return result
 
 
+# ------------------------------------------------------------------ phases 29-32
+# the loaded program against the direct generate on the same card and inputs: the same kernels and ops in the
+# same order, so bit for bit is the aim; dopri5's accept/reject compares norms, so 1e-5 over its whole solve
+SEALED_TOL = {"euler": 1e-6, "dopri5": 1e-5, "fused": 1e-6}
+SEALED_BATCH, SEALED_SIZE = 16, 256
+S2B_FIRST_LOSS_REL_TOL = 1e-5
+SANITY_TILES = (64, 16, 16)  # train / val / test 256-px tiles with binary masks
+
+
+def counted_calls(fn, repeats: int) -> tuple:
+    """``1 + repeats`` calls of ``fn`` each bracketed by CUDA events, the
+    launch counts zeroed just before the first and read just after it:
+    (its output, its launches, the median ms of all)."""
+    import torch
+
+    times, out, launches = [], None, None
+    for i in range(1 + repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if i == 0:
+            zero_kernel_launches()
+        start.record()
+        result = fn()
+        end.record()
+        end.synchronize()
+        if i == 0:
+            out, launches = result, kernel_launches()
+        times.append(start.elapsed_time(end))
+    return out, launches, statistics.median(times)
+
+
+def sealed_worker(spec: dict) -> None:
+    """Loaded sealed programs in a process of their own, which imports the
+    port's ``serving`` module and nothing of its models or tasks: for each
+    program the load time, the first call, then :func:`counted_calls`; its
+    output to ``<program>.out.npy``, the records to ``spec["result"]``."""
+    import numpy as np
+    import torch
+
+    from stain2stain_tpu_torch.serving import load_generator
+
+    src = torch.from_numpy(np.load(spec["source"])).cuda()
+    records = {}
+    for name, program, repeats in spec["programs"]:
+        t0 = time.perf_counter()
+        call = load_generator(program)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        call(src)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        out, launches, ms = counted_calls(lambda: call(src), repeats)
+        np.save(program + ".out.npy", out.cpu().numpy())
+        records[name] = dict(load_s=load_s, first_call_s=first_s, ms=ms, launches=launches)
+        del call, out
+        torch.cuda.empty_cache()
+    loaded = sorted(m for m in sys.modules if m.startswith(("stain2stain_tpu_torch.models", "stain2stain_tpu_torch.tasks",
+                                                            "stain2stain_tpu_torch.config", "stain2stain_tpu.")))
+    Path(spec["result"]).write_text(json.dumps(dict(records=records, model_modules=loaded)))
+
+
+def run_sealed(programs: list, source: Path, work: Path) -> dict:
+    """:func:`sealed_worker` on ``programs`` ((name, path, repeats)) in one
+    subprocess: {name: (its record, its output)}."""
+    import numpy as np
+
+    spec = dict(programs=[(n, str(p), r) for n, p, r in programs], source=str(source),
+                result=str(work / "sealed-result.json"))
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--sealed-worker", json.dumps(spec)],
+                          cwd=work, env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"the sealed programs failed in their process:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-6000:]}")
+    result = json.loads(Path(spec["result"]).read_text())
+    if result["model_modules"]:
+        raise AssertionError(f"loading the sealed programs imported model code: {result['model_modules']}")
+    return {n: (result["records"][n], np.load(str(p) + ".out.npy")) for n, p, _ in programs}
+
+
+def phase_serve_sealed(card: str, net, work: Path) -> dict:
+    """``serve-sealed``: phase 5's jittered flagship sealed for batch 16 at 256
+    px by ``serving.export_generator`` (euler with 2 steps, the config's
+    dopri5, and a bf16 ``fused_conv`` net with the same weights under euler),
+    the programs loaded and run on the tile batch in a process of their own
+    (:func:`sealed_worker`): within ``SEALED_TOL`` of the direct
+    ``generate``, with the same K1-fwd (and K2) launches; the export seconds,
+    the program's MB, the loaded and direct tile-batch ms."""
+    import numpy as np
+    import torch
+
+    from stain2stain_tpu_torch.config import compose, instantiate
+    from stain2stain_tpu_torch.ops.solvers import SolverConfig
+    from stain2stain_tpu_torch.serving import export_generator
+    from stain2stain_tpu_torch.tasks import ConditionalFlowMatchingModule
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # torch's defaults, as the loading process has them
+    torch.backends.cudnn.allow_tf32 = True
+    cfg = compose(REPO / "configs", "infer.yaml", ["model=conditional_flow_matching"])
+    fused_cfg = compose(REPO / "configs", "infer.yaml", ["model=conditional_flow_matching", FUSED_OVERRIDE])
+    fused_net = instantiate(fused_cfg.model.net, device="cuda")
+    fused_net.load_state_dict(net.state_dict())
+    fused_net.dtype = torch.bfloat16
+    evals = [0]
+    hooks = [m.register_forward_hook(lambda *_: evals.__setitem__(0, evals[0] + 1)) for m in (net, fused_net)]
+    cases = {  # name: (task, num_steps, timed calls after the counted one)
+        "euler": (ConditionalFlowMatchingModule(net=net, solver=SolverConfig("euler")), 2, 4),
+        "dopri5": (ConditionalFlowMatchingModule(net=net, solver=instantiate(cfg.model.solver)), 100, 0),
+        "fused": (ConditionalFlowMatchingModule(net=fused_net, solver=SolverConfig("euler")), 2, 4),
+    }
+    src = tile_batch(SEALED_BATCH, SEALED_SIZE)
+    source = work / "sealed-source.npy"
+    np.save(source, src.cpu().numpy())
+    results, direct = {}, {}
+    for name, (task, num_steps, repeats) in cases.items():
+        # the direct path, counts zeroed just before and read just after its first call
+        evals[0] = 0
+        out, launches, ms = counted_calls(lambda: task.generate(src, num_steps=num_steps), repeats)
+        direct[name], velocity_evals = out, evals[0] // (1 + repeats)  # read before the export traces the net
+        program = work / f"sealed-{name}.pt2"
+        t0 = time.perf_counter()
+        export_generator(task, program, batch=SEALED_BATCH, image_size=SEALED_SIZE, num_steps=num_steps)
+        results[name] = dict(card=card, num_steps=num_steps, repeats=repeats, export_s=time.perf_counter() - t0,
+                             program_mb=program.stat().st_size / 1e6, direct_ms=ms, direct_launches=launches,
+                             velocity_evals=velocity_evals,
+                             sidecar=json.loads(Path(str(program) + ".json").read_text()))
+    for h in hooks:
+        h.remove()
+    del fused_net, cases
+    # the loaded programs' main path, in their process
+    loaded = run_sealed([(n, work / f"sealed-{n}.pt2", r["repeats"]) for n, r in results.items()], source, work)
+    for name, r in results.items():
+        record, out = loaded[name]
+        err = float(np.abs(out - direct[name].cpu().numpy()).max())
+        r.update(load_s=record["load_s"], first_call_s=record["first_call_s"], loaded_ms=record["ms"],
+                 loaded_launches=record["launches"], max_abs_err=err, bit_equal=bool(err == 0.0))
+        log(f"serve-sealed-{name} " + json.dumps(r))
+        if not np.isfinite(out).all() or out.shape != tuple(src.shape) or err > SEALED_TOL[name]:
+            raise AssertionError(f"the sealed {name} program differs from generate by {err} (tolerance "
+                                 f"{SEALED_TOL[name]}) or is non-finite/misshapen")
+        k1, k2 = r["loaded_launches"]["K1-fwd"], r["loaded_launches"]["K2"]
+        if k1 == 0 or k1 != r["direct_launches"]["K1-fwd"] or k1 != r["velocity_evals"]:
+            raise AssertionError(f"{name}: K1-fwd launches loaded {k1}, direct {r['direct_launches']['K1-fwd']}, "
+                                 f"velocity evaluations {r['velocity_evals']}")
+        want_k2 = FLAGSHIP_FUSED_CONVS * r["velocity_evals"] if name == "fused" else 0
+        if k2 != r["direct_launches"]["K2"] or k2 != want_k2:
+            raise AssertionError(f"{name}: K2 launches loaded {k2}, direct {r['direct_launches']['K2']}, "
+                                 f"want {want_k2}")
+        if r["sidecar"]["platforms"] != ["cuda"] or r["sidecar"]["batch"] != SEALED_BATCH:
+            raise AssertionError(f"{name}: sidecar {r['sidecar']}")
+    return dict(results=results, euler_direct=direct["euler"], euler_program=work / "sealed-euler.pt2", src=src)
+
+
+def _archive_members(path: Path) -> dict:
+    """{member name without the archive's top folder: bytes} of a ``.pt2``."""
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        return {name.split("/", 1)[1]: z.read(name) for name in z.namelist()}
+
+
+def phase_convert_ckpt(card: str, net, work: Path, sealed: dict) -> dict:
+    """``convert-ckpt``: a Lightning-layout ``.ckpt`` of phase 5's jittered
+    flagship (``{"state_dict": {"net." + k: v}, "epoch", "global_step"}``)
+    through ``python -m stain2stain_tpu_torch.convert_ckpt``; ``load_task`` on
+    the directory generates phase 29's tile batch (euler, 2 steps) bit for bit
+    as the source task did, with one K1-fwd launch; ``export_model`` on the
+    directory writes phase 29's euler program: every member of the archive
+    (graph, weights, constants) the same bytes."""
+    import torch
+
+    from stain2stain_tpu_torch import convert_ckpt, export_model
+    from stain2stain_tpu_torch.config import compose
+    from stain2stain_tpu_torch.inference import load_task
+
+    ckpt = work / "flagship.ckpt"
+    torch.save({"state_dict": {f"net.{k}": v.cpu() for k, v in net.state_dict().items()}, "epoch": 3,
+                "global_step": 24}, ckpt)
+    out_dir = work / "converted"
+    t0 = time.perf_counter()
+    _cli(convert_ckpt, [f"ckpt_path={ckpt}", f"+out={out_dir}", "model=conditional_flow_matching"], work)
+    convert_s = time.perf_counter() - t0
+    meta = json.loads((out_dir / "meta.json").read_text())
+    if (meta["epoch"], meta["global_step"], meta["weights_only_conversion"]) != (3, 24, True):
+        raise AssertionError(f"converted meta {meta}")
+    cfg = compose(REPO / "configs", "infer.yaml", ["model=conditional_flow_matching", f"ckpt_path={out_dir}",
+                                                    "model.solver.solver=euler"])
+    task = load_task(cfg)
+    # the main path: counts zeroed just before, read just after
+    zero_kernel_launches()
+    got = task.generate(sealed["src"], num_steps=2)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    if not torch.equal(got, sealed["euler_direct"]) or launches["K1-fwd"] != 1:
+        raise AssertionError(f"the converted checkpoint generates another batch (max abs "
+                             f"{(got - sealed['euler_direct']).abs().max().item()}) or launched {launches}")
+    del task
+    program = work / "exported.pt2"
+    t0 = time.perf_counter()
+    _cli(export_model, [f"ckpt_path={out_dir}", "model=conditional_flow_matching", "model.solver.solver=euler",
+                        "num_steps=2", f"+batch={SEALED_BATCH}", f"+image_size={SEALED_SIZE}", f"+out={program}"],
+         work)
+    export_s = time.perf_counter() - t0
+    ours, theirs = _archive_members(program), _archive_members(sealed["euler_program"])
+    differ = sorted(k for k in set(ours) | set(theirs) if ours.get(k) != theirs.get(k))
+    if differ:
+        raise AssertionError(f"export_model's program differs from phase 29's euler program in {differ[:5]}")
+    summary = dict(card=card, convert_s=convert_s, meta=meta, infer_launches=launches, export_model_s=export_s,
+                   archive_members=len(ours), same_program=True)
+    log("convert-ckpt " + json.dumps(summary))
+    return summary
+
+
+def _sanity_report(root: Path, work: Path) -> tuple[int, dict]:
+    """``python -m stain2stain_tpu_torch.data_sanity`` on ``root``, in process
+    (``main(argv)``, its output captured): (its exit code, its report)."""
+    import contextlib
+
+    from stain2stain_tpu_torch import data_sanity
+
+    argv = [f"data.data_dir={root}", "data=paired_data_mask_he_amyloid", "data.csv_file_name=metadata.csv"]
+    before = os.environ.get("PROJECT_ROOT")
+    os.environ["PROJECT_ROOT"] = str(work)
+    buf, code = io.StringIO(), 0
+    try:
+        with contextlib.redirect_stdout(buf):
+            try:
+                data_sanity.main(argv)
+            except SystemExit as exc:  # the report is printed first
+                code = exc.code
+    finally:
+        os.environ["PROJECT_ROOT"] = before or str(REPO)
+    text = buf.getvalue()
+    start = text.find('{\n  "csv"')
+    if start < 0:
+        raise AssertionError(f"data_sanity printed no report (exit {code}):\n{text[-2000:]}")
+    return code, json.JSONDecoder().raw_decode(text[start:])[0]
+
+
+def phase_data_sanity(card: str, work: Path) -> dict:
+    """``data-sanity``: ``stain2stain_tpu_torch.data_sanity``'s entry point on
+    a synthetic masked tree (``SANITY_TILES``, 256 px): exit 0, no error,
+    every probed tile 256×256; then on a copy with one source tile removed:
+    exit 1, that column in ``missing_files``."""
+    import shutil
+
+    from stain2stain_tpu_torch.data.synthetic import generate_paired_dataset
+
+    root = work / "data-sanity"
+    n_train, n_val, n_test = SANITY_TILES
+    generate_paired_dataset(root, n_train=n_train, n_val=n_val, n_test=n_test, size=256, seed=0, with_mask=True)
+    t0 = time.perf_counter()
+    rc, report = _sanity_report(root, work)
+    green_s = time.perf_counter() - t0
+    if rc != 0 or report["errors"] or report["missing_files"] or report["rows"] != sum(SANITY_TILES) \
+            or report["shape_histogram"] != {"256x256": 64}:
+        raise AssertionError(f"data_sanity on a whole tree: exit {rc}, {report}")
+    broken = work / "data-sanity-broken"
+    shutil.copytree(root, broken)
+    with open(broken / "metadata.csv", newline="") as fh:
+        row = next(csv.DictReader(fh))
+    column = [c for c in row if c.endswith("_filepath")][0]
+    (broken / row["split"] / row[column]).unlink()
+    rc_broken, broken_report = _sanity_report(broken, work)
+    if rc_broken == 0 or broken_report["missing_files"] != {column: 1}:
+        raise AssertionError(f"data_sanity with {column} removed: exit {rc_broken}, {broken_report}")
+    summary = dict(card=card, rows=report["rows"], split_counts=report["split_counts"],
+                   file_columns=report["file_columns"], shape_histogram=report["shape_histogram"], exit=rc,
+                   seconds=green_s, broken_exit=rc_broken, broken_missing=broken_report["missing_files"])
+    log("data-sanity " + json.dumps(summary))
+    return summary
+
+
+def check_train_s2b(summary: dict, f32_summary: dict) -> dict:
+    """``train-s2b`` against phase 8 (``train-f32``) of the same call: the first
+    loss within ``S2B_FIRST_LOSS_REL_TOL`` relative, the same K1 launches; the
+    step and peak beside phase 8's."""
+    rel = abs(summary["losses"][0] - f32_summary["losses"][0]) / abs(f32_summary["losses"][0])
+    same = all(summary[k] == f32_summary[k] for k in ("k1_fwd_launches", "k1_bwd_launches"))
+    result = dict(first_loss=summary["losses"][0], f32_first_loss=f32_summary["losses"][0], first_loss_rel=rel,
+                  step_ms=summary["step_ms_median_3_8"], f32_step_ms=f32_summary["step_ms_median_3_8"],
+                  step_ratio=summary["step_ms_median_3_8"] / f32_summary["step_ms_median_3_8"],
+                  peak_gib=summary["peak_mem_gib"], f32_peak_gib=f32_summary["peak_mem_gib"],
+                  k1_fwd_launches=summary["k1_fwd_launches"], k1_bwd_launches=summary["k1_bwd_launches"])
+    log("train-s2b-vs-f32 " + json.dumps(result))
+    if rel > S2B_FIRST_LOSS_REL_TOL or not same:
+        raise AssertionError(f"train-s2b against train-f32: {result}")
+    return result
+
+
 def main() -> int:
     import argparse
 
@@ -2942,10 +3275,15 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also profile one tile batch, one request and train steps (where the time goes)")
     parser.add_argument("--ddp-worker", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase 28
+    parser.add_argument("--sealed-worker", metavar="SPEC", help=argparse.SUPPRESS)  # a program of phases 29-30
     args = parser.parse_args()
     if args.ddp_worker:
         sys.path.insert(0, str(REPO))
         ddp_worker(json.loads(args.ddp_worker))
+        return 0
+    if args.sealed_worker:
+        sys.path.insert(0, str(REPO))
+        sealed_worker(json.loads(args.sealed_worker))
         return 0
     try:
         import torch
@@ -3009,7 +3347,17 @@ def main() -> int:
     parity = timed("unet-parity", phase_unet_parity, net)
     if args.profile:
         phase_profile(net, card)
+
+    # 29-31 (run here, on phase 5's net): the sealed generator, the converted checkpoint, the data sanity check
+    (REPO / "scratch").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_", dir=REPO / "scratch") as work:
+        work = Path(work)
+        sealed = timed("serve-sealed", phase_serve_sealed, card, net, work)
+        converted = timed("convert-ckpt", phase_convert_ckpt, card, net, work, sealed)
+        sanity = timed("data-sanity", phase_data_sanity, card, work)
+        sealed = sealed["results"]
     del net
+    gc.collect()
     torch.cuda.empty_cache()
 
     # 7-18 write their synthetic data and checkpoints in a gitignored scratch dir
@@ -3102,6 +3450,14 @@ def main() -> int:
 
         # 25. the template's MNIST sweep through the entry point (24 ran with the mask phases)
         sweep = timed("mnist-sweep", phase_mnist_sweep, card, work)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 32. phase 8's point with s2b_conv=2 (under the expandable segments set before phase 16)
+        s2b_summary = timed("train-s2b", phase_train, card, work, "train-s2b")[0]
+        s2b = check_train_s2b(s2b_summary, f32_summary)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # 26. FastDropout(impl="bits") on the card
     gc.collect()
@@ -3145,8 +3501,21 @@ def main() -> int:
     }
     log("slice-11 " + json.dumps({"dropout_bits": {k: bits[k] for k in ("bits_ms", "hash_ms", "keep_fraction")},
                                   "mnist_sweep_s": sweep["seconds"], "mnist_best": sweep["best"]}))
+    # phases 29-32: the loaded sealed programs (and export_model's), the converted checkpoint's generate, train-s2b
+    tools_launches = {
+        kernel: {"serve_sealed": sum(r["loaded_launches"][kernel] for r in sealed.values()),
+                 "infer_converted": converted["infer_launches"][kernel], "train_s2b": s2b_summary[key]}
+        for kernel, key in (("K1-fwd", "k1_fwd_launches"), ("K1-bwd", "k1_bwd_launches"), ("K2", "k2_launches"),
+                            ("K3", "k3_launches"), ("K4", "k4_launches"), ("K5", "k5_launches"))
+    }
+    log("slice-13 " + json.dumps({
+        "serve_sealed": {name: {k: r[k] for k in ("export_s", "program_mb", "load_s", "first_call_s", "loaded_ms",
+                                                  "direct_ms", "max_abs_err", "velocity_evals")}
+                         for name, r in sealed.items()},
+        "convert_ckpt_s": converted["convert_s"], "export_model_s": converted["export_model_s"],
+        "data_sanity_s": sanity["seconds"], "train_s2b": s2b}))
 
-    # 29. result lines
+    # 33. result lines
     def row(name, source, replaces, case, launches, by_path, passed):
         return {
             "name": name,
@@ -3188,7 +3557,7 @@ def main() -> int:
              "train_masked_conditioned": cond_summary["k1_fwd_launches"], "serve_toggle": infer_cond["serve"]["k1_launches"],
              **{n.replace("-", "_"): m["k1_fwd_launches"] for n, m in mask_paths.items()}, **mt_launches["K1-fwd"],
              **slice_launches["K1-fwd"], "train_ddp": ddp_summary["k1_fwd_launches"],
-             "train_ddp_2rank": sum(ddp2_summary["k1_fwd_launches"])},
+             "train_ddp_2rank": sum(ddp2_summary["k1_fwd_launches"]), **tools_launches["K1-fwd"]},
             all(c["ok"] for c in k1["cases"]) and parity["ok"]),
         row("attention_bwd (K1-bwd)", "stain2stain_tpu_torch/csrc/attention_bwd.cu",
             "stain2stain_tpu/ops/pallas_attention.py:78", k1_bwd["cases"][0], train_summary["k1_bwd_launches"],
@@ -3199,12 +3568,12 @@ def main() -> int:
              "train_masked_conditioned": cond_summary["k1_bwd_launches"],
              **{n.replace("-", "_"): m["k1_bwd_launches"] for n, m in mask_paths.items()}, **mt_launches["K1-bwd"],
              **slice_launches["K1-bwd"], "train_ddp": ddp_summary["k1_bwd_launches"],
-             "train_ddp_2rank": sum(ddp2_summary["k1_bwd_launches"])},
+             "train_ddp_2rank": sum(ddp2_summary["k1_bwd_launches"]), **tools_launches["K1-bwd"]},
             all(c["ok"] for c in k1_bwd["cases"]) and grad["ok"] and masks["mask-grad-parity"]["ok"]),
     ] + [
         row(title, f"stain2stain_tpu_torch/csrc/{source}", replaces, convs["rows"][k][0], fused_summary[key],
             {"train_fused": fused_summary[key], "train_fused_remat": fused_remat_summary[key], **mt_launches[k],
-             **slice_launches[k]},
+             **slice_launches[k], **tools_launches[k]},
             all(c["ok"] for c in convs["rows"][k]) and conv_ok)
         for k, (title, source, replaces, key) in conv_sources.items()
     ]

@@ -15,7 +15,10 @@ the reference Lightning module's (``encoder.inc.double_conv.{0,1,3,4}``,
 ``running_mean`` / ``running_var``, ``num_batches_tracked`` 0, which the JAX
 converter drops); it also carries GroupNorm parameters, which that converter
 does not. A reference checkpoint's ``state_dict`` needs no conversion: it
-loads into the port's net under ``norm="batch"`` as it is.
+loads into the port's net under ``norm="batch"`` as it is;
+:func:`convert_multitask_state_dict` (the counterpart of JAX's) keeps its
+``encoder`` / ``flow_decoder`` / ``seg_decoder`` entries (the flow matcher's
+and metrics' buffers of a Lightning file are not the net's).
 
 :func:`segmentation_unet_state_dict_from_flax` does the same for
 ``SegmentationUNet`` (flax ``enc_{i}`` / ``bottleneck`` / ``dec_{i}`` /
@@ -30,7 +33,15 @@ import torch
 
 from .unet import _conv, _linear, _norm, _put, _t
 
-__all__ = ["multitask_state_dict_from_flax", "segmentation_unet_state_dict_from_flax"]
+__all__ = ["convert_multitask_state_dict", "multitask_state_dict_from_flax", "segmentation_unet_state_dict_from_flax"]
+
+_MODULES = ("encoder.", "flow_decoder.", "seg_decoder.")
+
+
+def convert_multitask_state_dict(state_dict: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The port's multitask net ``state_dict`` from a reference multitask
+    ``ckpt["state_dict"]``: its three modules' entries, keys as they are."""
+    return {k: torch.as_tensor(v) for k, v in state_dict.items() if k.startswith(_MODULES)}
 
 
 def _count(tree: Mapping, prefix: str) -> int:

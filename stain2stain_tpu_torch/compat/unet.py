@@ -15,9 +15,17 @@
 - :func:`load_reference_checkpoint` reads a ``.pt`` state dict or a reference
   Lightning ``.ckpt`` (``torch.load(weights_only=True)``) and strips the
   ``net.`` prefix, giving a state dict the port's UNet loads directly.
+- :func:`convert_lightning_state_dict` / :func:`convert_unet_state_dict`
+  (counterparts of ``stain2stain_tpu.compat``'s, for
+  ``python -m stain2stain_tpu_torch.convert_ckpt``): the reference keys are
+  the port's, so they strip the prefix and, for a net trained with
+  ``use_new_attention_order=True`` (``attention_order="new"``, rows
+  ``[q‖k‖v]``), put the qkv rows back into the legacy order, the inverse of
+  JAX ``torch_unet.py::_qkv_perm``. :func:`load_strict` loads a state dict
+  and raises :class:`ConversionError` naming a missing or unexpected key.
 
-Orbax checkpoints of the JAX package cannot be read without JAX; they go
-through ``unet_state_dict_from_flax`` in a process that has JAX.
+Orbax checkpoints of the JAX package cannot be read without JAX;
+``scripts/torch_from_orbax.py`` converts them in a process that has JAX.
 """
 
 from __future__ import annotations
@@ -31,6 +39,10 @@ import torch
 from ..models.unet import attention_ds
 
 __all__ = [
+    "ConversionError",
+    "convert_lightning_state_dict",
+    "convert_unet_state_dict",
+    "load_strict",
     "unet_state_dict_from_flax",
     "unet_4to3_state_dict_from_flax",
     "frac_head_state_dict_from_flax",
@@ -220,3 +232,75 @@ def load_reference_checkpoint(path: str | Path, net_prefix: str = "net.") -> dic
     if any(k.startswith(net_prefix) for k in obj):
         obj = {k[len(net_prefix):]: v for k, v in obj.items() if k.startswith(net_prefix)}
     return dict(obj)
+
+
+class ConversionError(KeyError):
+    """A reference checkpoint does not match the architecture it is loaded into."""
+
+
+def convert_unet_state_dict(
+    state_dict: Mapping[str, Any],
+    *,
+    num_heads: int = 4,
+    num_head_channels: int = -1,
+    attention_order: str = "legacy",
+) -> dict[str, torch.Tensor]:
+    """A torchcfm UNet ``state_dict`` (no prefix) in the port's layout: the
+    same keys, the qkv rows of every attention layer in the legacy order.
+
+    ``attention_order="new"``: the file's rows are ``[q‖k‖v]`` (each
+    head-major); ``"legacy"``: already the port's. The heads of a layer come
+    from its channels as in the UNet (``num_head_channels`` per head, else
+    ``num_heads``).
+    """
+    if attention_order not in ("legacy", "new"):
+        raise ValueError(f"attention_order must be 'legacy' or 'new', got {attention_order!r}")
+    sd = {k: torch.as_tensor(v) for k, v in state_dict.items()}
+    if attention_order == "legacy":
+        return sd
+    for key in [k for k in sd if k.endswith(".qkv.weight")]:
+        prefix = key[: -len(".weight")]
+        channels = sd[key].shape[1]
+        heads = max(channels // num_head_channels, 1) if num_head_channels != -1 else num_heads
+        perm = torch.from_numpy(_qkv_perm(channels, channels // heads))
+        for name in ("weight", "bias"):
+            rows = sd[f"{prefix}.{name}"]
+            legacy = torch.empty_like(rows)
+            legacy[perm] = rows  # row perm[c] of the legacy layout is column c of [q‖k‖v]
+            sd[f"{prefix}.{name}"] = legacy
+    return sd
+
+
+def convert_lightning_state_dict(
+    state_dict: Mapping[str, Any], net_prefix: str = "net.", **unet_kwargs
+) -> dict[str, torch.Tensor]:
+    """A reference LightningModule ``state_dict`` (``ckpt["state_dict"]``) →
+    the port's UNet ``state_dict``: only the ``net_prefix`` entries, prefix
+    stripped, through :func:`convert_unet_state_dict`."""
+    net_sd = {k[len(net_prefix):]: v for k, v in state_dict.items() if k.startswith(net_prefix)}
+    if not net_sd:
+        raise ConversionError(
+            f"no '{net_prefix}*' keys in the state dict — not a reference CFM checkpoint, "
+            "or pass net_prefix= for a different attribute name"
+        )
+    return convert_unet_state_dict(net_sd, **unet_kwargs)
+
+
+def load_strict(module: torch.nn.Module, state_dict: Mapping[str, torch.Tensor]) -> None:
+    """``module.load_state_dict(state_dict)`` that raises :class:`ConversionError`
+    naming the first missing or unexpected key."""
+    own = module.state_dict()
+    missing = sorted(set(own) - set(state_dict))
+    unexpected = sorted(set(state_dict) - set(own))
+    if missing:
+        raise ConversionError(
+            f"reference checkpoint is missing '{missing[0]}' ({len(missing)} keys) — the model config does not "
+            "match the checkpoint's architecture (check num_channels/channel_mult/num_res_blocks/"
+            "attention_resolutions)"
+        )
+    if unexpected:
+        raise ConversionError(
+            f"reference checkpoint has unexpected key '{unexpected[0]}' ({len(unexpected)} keys) — the model "
+            "config does not match the checkpoint's architecture"
+        )
+    module.load_state_dict(state_dict, strict=True)

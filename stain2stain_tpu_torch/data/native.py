@@ -6,6 +6,8 @@ array with an internal C++ thread pool; ctypes releases the interpreter lock
 for its duration. The library is built on first use with ``make -C native``
 (g++, libpng, libjpeg); where that fails, or ``S2S_DISABLE_NATIVE=1``,
 :func:`available` is False and the datasets decode tile by tile.
+:func:`probe` reads an image's (height, width) through the library's
+``s2s_probe``, or through PIL where the library is not there.
 """
 
 from __future__ import annotations
@@ -52,6 +54,8 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.c_int,  # n_threads
         ]
         lib.s2s_decode_batch.restype = ctypes.c_int
+        lib.s2s_probe.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int)]
+        lib.s2s_probe.restype = ctypes.c_int
         _lib = lib
         return _lib
 
@@ -80,4 +84,22 @@ def decode_batch(paths: Sequence[str], size: int, channels: int = 3, nearest: bo
     return out
 
 
-__all__ = ["available", "decode_batch"]
+def probe(path: str) -> Optional[tuple[int, int]]:
+    """(height, width) of an image file, or None if it cannot be read: the
+    native library's header read when it is there, else (or where it fails)
+    PIL's, as JAX ``src/data_sanity.py:65-75`` falls back."""
+    lib = _load() if available() else None
+    if lib is not None:
+        dims = (ctypes.c_int * 2)()
+        if lib.s2s_probe(os.fsencode(str(path)), dims):
+            return int(dims[0]), int(dims[1])
+    try:
+        from PIL import Image
+
+        with Image.open(path) as im:
+            return int(im.height), int(im.width)
+    except Exception:
+        return None
+
+
+__all__ = ["available", "decode_batch", "probe"]

@@ -60,8 +60,12 @@ Every dropout seed is drawn from the ``generator`` once, in forward order,
 before any region, and handed to its ResBlock: a recompute reuses it, and the
 generator's state after a step is the same with and without remat.
 
-Not in this slice: ``s2b_conv`` (an opt-in conv path) raises
-``NotImplementedError``.
+``s2b_conv=f`` (opt-in) runs a ResBlock's two 3×3 convs through
+:func:`..ops.s2b_conv.space_to_batch_conv` (f × f halo tiles, one VALID
+cuDNN conv over the B·f² tiles) where JAX ``ResBlock._s2b_factor``
+(``unet.py:167-176``) allows: not in up/down blocks, only where f divides H
+and W and a tile keeps at least 16 px a side. The fused path goes first.
+State-dict keys do not change.
 """
 
 from __future__ import annotations
@@ -78,6 +82,7 @@ from ..ops import conv as conv_ops
 from ..ops.attention import attention
 from ..ops.dropout import FastDropout, draw_seed
 from ..ops.norms import group_norm, group_norm_film_silu, group_norm_silu
+from ..ops.s2b_conv import space_to_batch_conv
 from ..ops.time_embedding import timestep_embedding_adm
 
 _DTYPES = {
@@ -167,11 +172,13 @@ class ResBlock(nn.Module):
         up: bool = False,
         down: bool = False,
         fused_conv: bool = False,
+        s2b_conv: Optional[int] = None,
     ):
         super().__init__()
         self.use_scale_shift_norm = use_scale_shift_norm
         self.up, self.down = up, down
         self.fused_conv = bool(fused_conv)
+        self.s2b_conv = int(s2b_conv or 0)
         self.out_channels = out_channels
         self.in_layers = nn.Sequential(
             _norm(channels), nn.SiLU(), nn.Conv2d(channels, out_channels, 3, padding=1)
@@ -202,6 +209,24 @@ class ResBlock(nn.Module):
         b, c, h, w = x.shape
         d = self.out_channels
         return conv_ops.supported((b, h, w, c), (3, 3, c, d)) and conv_ops.supported((b, h, w, d), (3, 3, d, d))
+
+    def _s2b_factor(self, h: torch.Tensor) -> int:
+        """The tile factor for NCHW ``h``, or 0 for the plain conv (JAX
+        ``_s2b_factor``): tiles under 16 px pay more halo than they gain."""
+        f = self.s2b_conv
+        if f < 2 or self.up or self.down:
+            return 0
+        height, width = h.shape[2], h.shape[3]
+        if height % f or width % f or min(height, width) // f < 16:
+            return 0
+        return f
+
+    def _conv3(self, conv: nn.Conv2d, h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        f = self._s2b_factor(h)
+        if not f:
+            return _conv(conv, h, dtype)
+        y = space_to_batch_conv(h.to(dtype), conv.weight.to(dtype), f)
+        return y + conv.bias.to(dtype)[None, :, None, None]
 
     def _fused_forward(self, x, emb, dtype, seed) -> torch.Tensor:
         """JAX ``ResBlock._fused_call`` (``unet.py:236-269``) on NCHW ``x``."""
@@ -241,7 +266,7 @@ class ResBlock(nn.Module):
             h, x = _upsample_nearest(h), _upsample_nearest(x)
         elif self.down:
             h, x = F.avg_pool2d(h, 2), F.avg_pool2d(x, 2)
-        h = _conv(self.in_layers[2], h, dtype)
+        h = self._conv3(self.in_layers[2], h, dtype)
 
         emb_out = _conv(self.emb_layers[1], F.silu(emb.to(dtype)), dtype)[:, :, None, None]
         norm_out = self.out_layers[0]
@@ -251,7 +276,7 @@ class ResBlock(nn.Module):
         else:
             h = group_norm_silu(h + emb_out, norm_out.weight, norm_out.bias, norm_out.num_groups)
         h = self.out_layers[2](h.to(dtype), seed=seed)  # dropout: the identity in eval mode
-        h = _conv(self.out_layers[3], h, dtype)
+        h = self._conv3(self.out_layers[3], h, dtype)
 
         if isinstance(self.skip_connection, nn.Conv2d):
             x = _conv(self.skip_connection, x, dtype)
@@ -343,8 +368,6 @@ class UNetModel(nn.Module):
         device: DeviceLike = None,
     ):
         super().__init__()
-        if s2b_conv:
-            raise NotImplementedError("s2b_conv is not ported yet")
         self.remat = remat_mode(use_checkpoint)
         if fused_attention is False:
             raise NotImplementedError(
@@ -374,7 +397,8 @@ class UNetModel(nn.Module):
                 return max(ch // num_head_channels, 1)
             return num_heads
 
-        res_kw = dict(dropout=dropout, use_scale_shift_norm=use_scale_shift_norm, fused_conv=bool(fused_conv))
+        res_kw = dict(dropout=dropout, use_scale_shift_norm=use_scale_shift_norm, fused_conv=bool(fused_conv),
+                      s2b_conv=s2b_conv)
         self.time_embed = nn.Sequential(nn.Linear(mc, time_dim), nn.SiLU(), nn.Linear(time_dim, time_dim))
         if class_cond:
             self.label_emb = nn.Embedding(num_classes, time_dim)

@@ -18,6 +18,9 @@ an f32 (BH, T) array, 2 MiB at the 256-px training shape.)
 Each wrapper launches its kernel on CUDA tensors and raises on anything the
 kernel does not take; on CPU tensors it runs the kernel's plain version
 (:func:`fused_attention_reference`, :func:`fused_attention_backward_reference`).
+K1-fwd is the registered op ``s2s::attention_fwd`` (``torch.library.custom_op``
+with a fake implementation for the shapes), so ``torch.export`` traces a
+generator into a graph that holds it and a loaded program launches the kernel.
 ``fused_attention.launches`` and ``fused_attention_backward.launches`` count
 the kernel launches (plain integers), so a run can show that it went through
 the kernels.
@@ -120,28 +123,52 @@ def _check_lse(lse: torch.Tensor, q: torch.Tensor) -> None:
         raise ValueError(f"lse must be a contiguous f32 (BH, T) tensor beside q, got {tuple(lse.shape)} {lse.dtype}")
 
 
-def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, return_lse: bool = False):
-    """(BH, T, d) q/k/v → (BH, T, d) softmax(q·kᵀ·scale)·v in q's dtype (K1-fwd).
+@torch.library.custom_op("s2s::attention_fwd", mutates_args=())
+def _attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                   return_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The registered op of K1-fwd: (out, lse), lse empty unless asked for.
 
-    With ``return_lse`` returns (out, lse): also each row's log-sum-exp of the
-    scaled logits, f32 (BH, T), which :func:`fused_attention_backward` takes.
+    Its one implementation launches the kernel on CUDA tensors (and counts the
+    launch) and runs the plain version on CPU tensors, so a graph traced on
+    either device holds this op and the count is taken when it runs.
     """
     if runs_plain("fused_attention", q, k, v):
-        return fused_attention_reference(q, k, v, scale, return_lse)
+        if return_lse:
+            return fused_attention_reference(q, k, v, scale, return_lse=True)
+        return fused_attention_reference(q, k, v, scale), q.new_empty((0,), dtype=torch.float32)
     _check(q, k, v)
     bh, t, d = q.shape
     out = torch.empty_like(q)
-    lse = torch.empty((bh, t), dtype=torch.float32, device=q.device) if return_lse else None
+    lse = torch.empty((bh, t) if return_lse else (0,), dtype=torch.float32, device=q.device)
     fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr() if return_lse else None,
             bh, t, d, _DTYPE_CODES[q.dtype], float(scale), stream,
         )
     if err != 0:
         raise RuntimeError(f"attention_fwd kernel launch failed: cudaError {err}")
     fused_attention.launches += 1
+    return out, lse
+
+
+@_attention_fwd.register_fake
+def _(q, k, v, scale, return_lse):
+    runs_plain("fused_attention", q, k, v)  # raises for devices other than CUDA and CPU (meta)
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape or q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"fused_attention expects equal f32 or bf16 (BH, T, d) tensors, got {tuple(q.shape)} {q.dtype}")
+    return torch.empty_like(q), q.new_empty(q.shape[:2] if return_lse else (0,), dtype=torch.float32)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, return_lse: bool = False):
+    """(BH, T, d) q/k/v → (BH, T, d) softmax(q·kᵀ·scale)·v in q's dtype (K1-fwd,
+    the op ``s2s::attention_fwd``).
+
+    With ``return_lse`` returns (out, lse): also each row's log-sum-exp of the
+    scaled logits, f32 (BH, T), which :func:`fused_attention_backward` takes.
+    """
+    out, lse = _attention_fwd(q, k, v, float(scale), bool(return_lse))
     return (out, lse) if return_lse else out
 
 

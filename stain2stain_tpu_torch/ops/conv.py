@@ -28,7 +28,10 @@ units. Parity with the JAX kernels is exact only at rate 0.
 Each wrapper launches its kernel on CUDA tensors and raises on anything the
 kernel does not take; on CPU tensors it runs the kernel's plain version
 (``*_reference``, f32 products of bf16-rounded values, rounding where the
-kernels round). ``<wrapper>.launches`` counts the kernel launches.
+kernels round). ``<wrapper>.launches`` counts the kernel launches. K2 is the
+registered op ``s2s::conv3x3_fwd`` (``torch.library.custom_op`` with a fake
+implementation), so an exported bf16 ``fused_conv`` generator holds it; K3–K5
+run only in the backward and stay plain functions.
 
 :class:`_NormActConvCore` is the ``torch.autograd.Function`` in place of
 ``_core_fn``'s ``custom_vjp``: its forward is K2 and saves only the raw
@@ -313,19 +316,36 @@ def _launch_conv(x, wk, bias, scale, shift, act, dropout_rate, seed, name) -> to
     return y
 
 
-def fused_conv3x3(x, w, bias=None, scale=None, shift=None, act=None,
-                  dropout_rate: float = 0.0, seed=None) -> torch.Tensor:
-    """K2: y = conv3x3_SAME(dropout(act(x·scale + shift)), w) + bias, one kernel.
-
-    x (B, H, W, C) bf16 · w (3, 3, C, D) · scale/shift (B, C) f32 or None ·
-    bias (D,) or None · ``seed`` a uint32 (int or one-element tensor) → bf16
-    (B, H, W, D). Gate with :func:`supported`.
-    """
+@torch.library.custom_op("s2s::conv3x3_fwd", mutates_args=())
+def _conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], scale: Optional[torch.Tensor],
+                 shift: Optional[torch.Tensor], act: Optional[str], dropout_rate: float, seed: int) -> torch.Tensor:
+    """The registered op of K2: the kernel on CUDA tensors (its launch counted
+    here, when the op runs), the plain version on CPU tensors."""
     if runs_plain("fused_conv3x3", x, w):
         return fused_conv3x3_reference(x, w, bias, scale, shift, act, dropout_rate, seed)
     y = _launch_conv(x, w.permute(0, 1, 3, 2), bias, scale, shift, act, dropout_rate, seed, "fused_conv3x3")
     fused_conv3x3.launches += 1
     return y
+
+
+@_conv3x3_fwd.register_fake
+def _(x, w, bias, scale, shift, act, dropout_rate, seed):
+    runs_plain("fused_conv3x3", x, w)  # raises for devices other than CUDA and CPU (meta)
+    if not supported(x.shape, w.shape):
+        raise ValueError(f"fused_conv3x3: unsupported shapes x {tuple(x.shape)}, w {tuple(w.shape)}")
+    return x.new_empty((*x.shape[:3], w.shape[3]), dtype=_BF16)
+
+
+def fused_conv3x3(x, w, bias=None, scale=None, shift=None, act=None,
+                  dropout_rate: float = 0.0, seed=None) -> torch.Tensor:
+    """K2 (the op ``s2s::conv3x3_fwd``): y = conv3x3_SAME(dropout(act(x·scale
+    + shift)), w) + bias, one kernel.
+
+    x (B, H, W, C) bf16 · w (3, 3, C, D) · scale/shift (B, C) f32 or None ·
+    bias (D,) or None · ``seed`` a uint32 (int or one-element tensor) → bf16
+    (B, H, W, D). Gate with :func:`supported`.
+    """
+    return _conv3x3_fwd(x, w, bias, scale, shift, act, float(dropout_rate), _seed(seed))
 
 
 fused_conv3x3.launches = 0

@@ -88,7 +88,32 @@ def paired_random_crop_flip(
     return [img[b_idx, rows[:, :, None], cols[:, None, :]] for img in images]
 
 
+_RESIZE_MODES = {"linear": "bilinear", "bilinear": "bilinear", "nearest": "nearest-exact"}
+
+
+def center_resize(img: torch.Tensor, size: int, method: str = "linear") -> torch.Tensor:
+    """Resize float (B, H, W, C) to (B, size, size, C); "nearest" for masks
+    (``stain2stain_tpu/ops/image.py:83-86``).
+
+    ``jax.image.resize`` samples at half-pixel centres and, with its default
+    ``antialias=True``, widens the triangle kernel by the shrink factor when it
+    downsizes. The torch call with the same weights is ``F.interpolate`` with
+    ``bilinear``, ``align_corners=False`` and ``antialias=True`` (which is
+    plain bilinear when it enlarges); "nearest" is ``nearest-exact`` (the
+    half-pixel rule; torch's "nearest" rounds the other way). Agreement with
+    JAX: within 1e-6 in f32 (the tests' tolerance; summation order).
+    """
+    if method not in _RESIZE_MODES:
+        raise ValueError(f"center_resize supports {sorted(_RESIZE_MODES)}, got {method!r}")
+    mode = _RESIZE_MODES[method]
+    x = img.permute(0, 3, 1, 2).to(torch.float32)
+    kw = dict(align_corners=False, antialias=True) if mode == "bilinear" else {}
+    out = torch.nn.functional.interpolate(x, size=(size, size), mode=mode, **kw)
+    return out.permute(0, 2, 3, 1).to(img.dtype)
+
+
 __all__ = [
+    "center_resize",
     "normalize_uint8",
     "denormalize",
     "normalize_uint8_np",

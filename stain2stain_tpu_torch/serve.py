@@ -14,7 +14,8 @@ the CPU)::
     curl -X POST --data-binary @slide.png -H 'Content-Type: image/png' \
         http://localhost:8000/translate -o translated.png
 
-Orbax checkpoints of the JAX package cannot be read without JAX.
+An Orbax checkpoint of the JAX package is first converted by
+``scripts/torch_from_orbax.py`` in a process that has JAX.
 """
 
 from __future__ import annotations

@@ -178,8 +178,11 @@ class FlowMatchingTask(TaskModule):
         self.net.train(train)
         return self.net(t, x, **kw)
 
-    def _integrate(self, velocity_fn: VelocityFn, x0: torch.Tensor, num_steps: int) -> torch.Tensor:
-        return self.solver(velocity_fn, x0, num_steps)
+    def _integrate(self, velocity_fn: VelocityFn, x0: torch.Tensor, num_steps: int, *args) -> torch.Tensor:
+        """Solve from ``x0`` with ``velocity_fn(t, x, *args)``; the tensors it
+        reads come in ``args`` and the net's state is declared to the solver,
+        so the dopri5 loop exports (``ops/solvers.py``)."""
+        return self.solver(velocity_fn, x0, num_steps, args=args, modules=(self.net,))
 
     # --------------------------------------------------- qualitative logging
     def render_panels(self, batch: tuple, generator: Optional[torch.Generator] = None, num_steps: int = 2) -> dict:

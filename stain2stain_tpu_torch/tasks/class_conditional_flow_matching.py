@@ -42,10 +42,10 @@ class ClassConditionalFlowMatchingModule(FlowMatchingTask):
         return loss, {"loss": loss.detach()}
 
     def _generate(self, source: torch.Tensor, y: torch.Tensor, num_steps: int) -> torch.Tensor:
-        def velocity(t, x):
+        def velocity(t, x, y):
             return self._apply_net(t.expand(x.shape[0]), x, train=False, y=y)
 
-        return self._integrate(velocity, source, num_steps)
+        return self._integrate(velocity, source, num_steps, y)
 
     @staticmethod
     def _source(source, device) -> torch.Tensor:

@@ -63,10 +63,10 @@ class MaskConditionedFlowMatchingModule(FlowMatchingTask):
             if mask.ndim == 3:
                 mask = mask[None]
 
-            def velocity(t, x):
+            def velocity(t, x, mask):
                 return self._velocity(t.expand(x.shape[0]), x, mask)
 
-            return self._integrate(velocity, source, num_steps)
+            return self._integrate(velocity, source, num_steps, mask)
 
     def render_panels(self, batch: tuple, generator: Optional[torch.Generator] = None, num_steps: int = 2) -> dict:
         """Source / generated / target panels in [0, 1] and the conditioning mask."""

@@ -207,9 +207,9 @@ def test_config_tree_instantiates_port_classes():
     optimizer, scheduler = task.configure_optimizers()
     assert type(optimizer).__module__ == "stain2stain_tpu_torch.training.optim"
     assert scheduler.patience == 10
-    # a target the port does not have yet raises, naming it
-    with pytest.raises(InstantiationError, match=r"stain2stain_tpu\.serving\.export_generator"):
-        instantiate({"_target_": "stain2stain_tpu.serving.export_generator"})
+    # a target that neither package has raises, naming it
+    with pytest.raises(InstantiationError, match=r"stain2stain_tpu\.serving\.export_onnx"):
+        instantiate({"_target_": "stain2stain_tpu.serving.export_onnx"})
 
 
 def test_serve_cli_build_server(nets, tmp_path, monkeypatch):

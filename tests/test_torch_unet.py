@@ -169,10 +169,11 @@ def test_load_reference_checkpoint(tmp_path):
     assert "mid" in params
 
 
-@pytest.mark.parametrize("knob", [dict(s2b_conv=2), dict(use_checkpoint="blocks"), dict(fused_attention=False)])
+@pytest.mark.parametrize("knob", [dict(use_checkpoint="blocks"), dict(fused_attention=False)])
 def test_unported_knobs_raise(knob):
-    """Knobs the port refuses: ``s2b_conv`` and ``fused_attention=False`` are
-    not ported; an unknown ``use_checkpoint`` value is refused as JAX refuses it."""
+    """Knobs the port refuses: ``fused_attention=False`` would put the plain
+    attention on the card's path; an unknown ``use_checkpoint`` value is
+    refused as JAX refuses it."""
     err = ValueError if "use_checkpoint" in knob else NotImplementedError
     with pytest.raises(err):
         UNetModel(dim=(3, 16, 16), device="cpu", **TINY, **knob)
