@@ -215,10 +215,27 @@ Phases (any failure ends the script with a non-zero exit and no result line):
     phase 16): phase 8's operating point with ``+model.net.s2b_conv=2``: its
     first loss within 1e-5 relative of phase 8's, the same K1 launches; its
     step and peak memory beside phase 8's.
-33. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5, each with ``ms`` and
+33. ``quality-control`` (after phase 32): the port's smoke-scale quality
+    control (``stain2stain_tpu_torch.quality``, the counterpart of JAX's
+    ``tests/test_quality_control.py``: a 16-channel UNet, 32 px, 64
+    noise-free pairs, 150 epochs, f32) on the card at seeds 0-3, one process
+    a seed, all at once: JAX's gates on the mean over the seeds (val/loss
+    below 0.02, the 8- and 50-step SSIM at most 0.05 below the 2-step, the
+    50-step above 0.6); each seed's SSIMs and the phase's seconds; K1-fwd
+    and K1-bwd f32 in the mid block.
+34. ``quality-real``: ``scripts/torch_gen_quality_tiles.py`` writes the
+    1152-tile tree of ``experiment=quality_real_256``, which trains on it
+    through the entry point at full width (the plain ``PairedDataModule``,
+    its device cache, bf16-mixed, batch 32) for one epoch (16 steps,
+    validated) and tests; the device cache's decoded train tiles equal a
+    cv2 decode of the PNGs bit for bit; ``eval_quality`` at 2 euler steps on
+    its checkpoint (two test batches of 16) prints one JSON line (SSIM in
+    [-1, 1], a finite PSNR), K1-fwd once a batch.
+35. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5, each with ``ms`` and
     ``queued_ms``, and launches by path, the multitask paths', phases
-    22–25's, 27–28's and 29–32's included), the seconds of every phase, the
-    card line, and ``{"ok": true, "device": ...}`` as the last line.
+    22–25's, 27–28's, 29–32's and 33–34's included), the seconds of every
+    phase, the card line, and ``{"ok": true, "device": ...}`` as the last
+    line.
 
 With ``--profile`` it also profiles a tile batch and a request, and a train
 step of each path (``phase_profile_train``), the binary multitask study's
@@ -448,6 +465,11 @@ def phase_kernels(exp_per_s: float) -> dict:
         (64, 1024, 32, "float32", 8.0, True, "peaked logits (q x 8), f32"),
         (768, 1024, 32, "float32", 1.0, False,
          "generate_all_classes' shape (3 classes x 16 tiles x 16 heads), f32: any2any's all-class call"),
+        (16, 256, 32, "float32", 1.0, True,
+         "the quality control's training shape (32 px, batch 16, one 32-wide head at 16 px), f32, lse saved: "
+         "quality-control's training call"),
+        (8, 256, 32, "float32", 1.0, False,
+         "the quality control's 8 validation and test tiles, f32: quality-control's evaluation call"),
     ]
     results = []
     for bh, t, d, dtype, peak, with_lse, what in cases:
@@ -535,6 +557,8 @@ def phase_k1_bwd(exp_per_s: float) -> dict:
         (64, 1024, 32, "float32", 8.0, "peaked logits (q x 8), f32"),
         (16, 1000, 32, "float32", 1.0, "ragged T, f32"),
         (16, 1000, 32, "bfloat16", 1.0, "ragged T, bf16"),
+        (16, 256, 32, "float32", 1.0,
+         "the quality control's training shape (32 px, batch 16, one 32-wide head at 16 px), f32: quality-control"),
     ]
     results = []
     for bh, t, d, dtype, peak, what in cases:
@@ -1105,6 +1129,10 @@ MULTICLASS_TILES = (256, 32, 32)  # train / val / test 256-px tiles with 2-class
 WANDB_RUN = "chip-smoke"
 WANDB_OVERRIDES = TRAIN_OVERRIDES + ["logger=wandb", f"logger.wandb.name={WANDB_RUN}", "trainer.limit_train_batches=4"]
 WANDB_REF = f"stain2stain/model-{WANDB_RUN}:latest"
+# the flagship quality recipe (configs/experiment/quality_real_256.yaml: bf16-mixed, 256 px, batch 32, the plain CSV
+# datamodule over the on-disk tile tree, its device cache) cut to one epoch of its 512 tiles, validated and tested
+QUALITY_REAL_OVERRIDES = ["experiment=quality_real_256", "trainer.accelerator=gpu", "trainer.max_epochs=1",
+                          "trainer.check_val_every_n_epoch=1", "test=true"]
 # each training path: its overrides (``<data>`` stands for its data folder) and the folder of its synthetic data
 TRAIN_PATHS = {
     "train": (TRAIN_OVERRIDES, "data"),
@@ -1127,11 +1155,13 @@ TRAIN_PATHS = {
     "train-resume": (WANDB_OVERRIDES + [f"ckpt_path=wandb-artifact://{WANDB_REF}", "trainer.max_epochs=2",
                                         "+trainer.profiler=advanced"], "data"),
     "train-s2b": (TRAIN_F32_OVERRIDES + ["+model.net.s2b_conv=2"], "data-512"),
+    "train-quality-real": (QUALITY_REAL_OVERRIDES, "quality-tiles"),
 }
 MULTITASK_PATHS = ("train-multitask", "train-multitask-multiclass")  # the shared-encoder nets: no attention
 F32_PATHS = ("train-f32", "train-remat", "train-s2b", "train-any2any", "train-masked-conditioned", "train-masked", "train-roi",
              "train-pos-neg") + MULTITASK_PATHS
-PATH_STEPS = {"train-masked": 4, "train-roi": 4, "train-pos-neg": 4, "train-wandb": 4, "train-resume": 4}  # 8 otherwise
+PATH_STEPS = {"train-masked": 4, "train-roi": 4, "train-pos-neg": 4, "train-wandb": 4, "train-resume": 4,
+              "train-quality-real": 16}  # 8 otherwise
 
 
 def phase_train(card: str, work: Path, name: str = "train", callbacks: Optional[dict] = None) -> tuple[dict, dict]:
@@ -1952,21 +1982,16 @@ def mask_phases(card: str, work: Path, timed=lambda label, fn, *args: fn(*args))
 
 def zero_kernel_launches() -> None:
     """Every hand-written kernel's launch count to 0 (K1-fwd, K1-bwd, K2-K5)."""
-    from stain2stain_tpu_torch.ops import conv
-    from stain2stain_tpu_torch.ops.attention import fused_attention, fused_attention_backward
+    from stain2stain_tpu_torch.ops import zero_launches
 
-    for kernel in (fused_attention, fused_attention_backward, *conv.KERNELS):
-        kernel.launches = 0
+    zero_launches()
 
 
 def kernel_launches() -> dict:
     """{kernel: launches since the counts were zeroed}."""
-    from stain2stain_tpu_torch.ops import conv
-    from stain2stain_tpu_torch.ops.attention import fused_attention, fused_attention_backward
+    from stain2stain_tpu_torch.ops import launches
 
-    counts = {"K1-fwd": fused_attention.launches, "K1-bwd": fused_attention_backward.launches}
-    counts.update({f"K{i}": kernel.launches for i, kernel in enumerate(conv.KERNELS, start=2)})
-    return counts
+    return launches()
 
 
 def make_multiclass_data(work: Path) -> None:
@@ -3268,6 +3293,131 @@ def check_train_s2b(summary: dict, f32_summary: dict) -> dict:
     return result
 
 
+def control_worker(spec: dict) -> None:
+    """One seed of the quality control on the card, in a process of its own:
+    its result and the kernels' launches over it to ``spec["result"]``."""
+    import torch
+
+    from stain2stain_tpu_torch.quality import control_run
+
+    torch.set_num_threads(1)  # four workers and the tile writer share the host's cores
+    zero_kernel_launches()
+    run = control_run(spec["seed"], spec["work"], device="cuda")
+    run["launches"] = kernel_launches()
+    Path(spec["result"]).write_text(json.dumps(run))
+
+
+def phase_quality_control(card: str, work: Path) -> dict:
+    """33. ``quality-control``: the port's smoke-scale quality control
+    (:mod:`stain2stain_tpu_torch.quality`, the counterpart of JAX's
+    ``tests/test_quality_control.py``) on the card, its seeds at once, one
+    process each; JAX's gates on the mean over the seeds. The tiny net's
+    mid-block attention runs K1-fwd and K1-bwd in f32 at (B, 256, 32)."""
+    from stain2stain_tpu_torch.quality import CONTROL_SEEDS, control_verdict
+
+    t0 = time.perf_counter()
+    procs = {}
+    for seed in CONTROL_SEEDS:
+        spec = dict(seed=seed, work=str(work / f"control-{seed}"), result=str(work / f"control-{seed}.json"))
+        procs[seed] = (spec, subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--control-worker", json.dumps(spec)], cwd=work,
+            env=dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1"), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    runs = []
+    for seed, (spec, proc) in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            for _, other in procs.values():
+                other.kill()
+            raise AssertionError(f"quality control seed {seed} failed in its process:\n{out[-6000:]}")
+        runs.append(json.loads(Path(spec["result"]).read_text()))
+    verdict = control_verdict([dict(r, ssim={int(k): v for k, v in r["ssim"].items()}) for r in runs])
+    launches = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
+    result = dict(card=card, seeds=[{k: r[k] for k in ("seed", "val_loss", "ssim", "psnr", "fit_s", "eval_s")}
+                                    for r in runs],
+                  mean_val_loss=verdict["mean_val_loss"], mean_ssim=verdict["mean_ssim"], launches=launches,
+                  seconds=time.perf_counter() - t0)
+    log("quality-control " + json.dumps(result))
+    if verdict["failures"] or launches["K1-fwd"] == 0 or launches["K1-bwd"] == 0:
+        raise AssertionError(f"the quality control failed JAX's gates on the mean over seeds "
+                             f"{list(CONTROL_SEEDS)}: {verdict['failures']}, or launched no K1: {launches}")
+    return result
+
+
+def start_quality_tiles(work: Path) -> subprocess.Popen:
+    """``scripts/torch_gen_quality_tiles.py`` writing phase 34's tree into
+    ``work/quality-tiles`` in a process of its own (host work, run beside
+    phase 33)."""
+    return subprocess.Popen([sys.executable, str(REPO / "scripts" / "torch_gen_quality_tiles.py"),
+                             str(work / "quality-tiles")], cwd=work, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def phase_quality_real(card: str, work: Path, tiles: Optional[subprocess.Popen] = None) -> dict:
+    """34. ``quality-real``: the flagship quality recipe's data path and first
+    epoch. ``scripts/torch_gen_quality_tiles.py`` writes the 1152-tile tree
+    (``tiles``: its process, started earlier, which this phase waits for);
+    ``experiment=quality_real_256`` trains on it one epoch (16 steps) through
+    the entry point (``phase_train``), validates and tests; the device cache's
+    decoded train tiles equal a cv2 decode of the PNGs bit for bit;
+    ``eval_quality`` at 2 euler steps on its checkpoint (2 test batches of
+    16) prints one JSON line."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from stain2stain_tpu_torch import eval_quality
+
+    t0 = time.perf_counter()
+    if tiles is None:
+        tiles = start_quality_tiles(work)
+    out, _ = tiles.communicate(timeout=600)
+    if tiles.returncode != 0:
+        raise AssertionError(f"scripts/torch_gen_quality_tiles.py failed:\n{out[-3000:]}")
+    root = work / "quality-tiles"
+    tiles_s = time.perf_counter() - t0  # the wait for the tree in this phase
+    n_png = len(list(root.rglob("*.png")))
+    summary, objects = phase_train(card, work, "train-quality-real")
+    dm = objects["datamodule"]
+    del objects
+    loader = dm.train_dataloader()
+    loader._materialize()
+    ds = dm.datasets["train"]
+    names = ds._names(range(len(ds)))
+    cache_equal = []
+    for field, files in zip(loader._fields[:2], names):
+        decoded = np.stack([cv2.cvtColor(cv2.imread(os.path.join(ds.tile_dir, f)), cv2.COLOR_BGR2RGB) for f in files])
+        cache_equal.append(field.device.type == "cuda" and torch.equal(field.cpu(), torch.from_numpy(decoded)))
+    del loader
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    argv = [f"ckpt_path={summary['best_path']}", "data=paired_data", f"data.data_dir={root}",
+            "data.csv_file_name=metadata.csv", "data.direction=S2T", "data.image_size=256", "data.batch_size=16",
+            "data.use_augmentation=false", "model=conditional_flow_matching", "model.solver.solver=euler",
+            "num_steps=2", "n_batches=2"]
+    zero_kernel_launches()
+    t1 = time.perf_counter()
+    quality, printed = _cli(eval_quality, argv, work)
+    eval_launches = kernel_launches()
+    lines = [ln for ln in printed.splitlines() if ln.strip()]
+    result = dict(card=card, tiles=n_png, tiles_s=tiles_s, cache_equal=cache_equal, datamodule=summary["datamodule"],
+                  steps=summary["steps"], step_ms=summary["step_ms_median_3_8"], peak_gib=summary["peak_mem_gib"],
+                  val_loss=summary["val_loss"], test_loss=summary["test_loss"],
+                  train_launches={k: summary[f"{k.lower().replace('-', '_')}_launches"]
+                                  for k in ("K1-fwd", "K1-bwd", "K2", "K3", "K4", "K5")},
+                  eval_quality=quality, eval_s=time.perf_counter() - t1, eval_launches=eval_launches,
+                  seconds=time.perf_counter() - t0)
+    log("quality-real " + json.dumps(result))
+    if n_png != 2 * (512 + 32 + 32) or not all(cache_equal) or summary["datamodule"] != "PairedDataModule":
+        raise AssertionError(f"quality-real: the tree, the device cache or the datamodule is wrong: {result}")
+    if (len(lines) != 1 or json.loads(lines[0]) != quality or not -1.0 <= quality["ssim"] <= 1.0
+            or not math.isfinite(quality["psnr"]) or quality["fid_comparable"] is not False
+            or eval_launches["K1-fwd"] != 2):  # one velocity evaluation a batch, two batches
+        raise AssertionError(f"quality-real: eval_quality printed {printed!r}, launches {eval_launches}")
+    return result
+
+
 def main() -> int:
     import argparse
 
@@ -3276,7 +3426,12 @@ def main() -> int:
                         help="also profile one tile batch, one request and train steps (where the time goes)")
     parser.add_argument("--ddp-worker", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase 28
     parser.add_argument("--sealed-worker", metavar="SPEC", help=argparse.SUPPRESS)  # a program of phases 29-30
+    parser.add_argument("--control-worker", metavar="SPEC", help=argparse.SUPPRESS)  # a seed of phase 33
     args = parser.parse_args()
+    if args.control_worker:
+        sys.path.insert(0, str(REPO))
+        control_worker(json.loads(args.control_worker))
+        return 0
     if args.ddp_worker:
         sys.path.insert(0, str(REPO))
         ddp_worker(json.loads(args.ddp_worker))
@@ -3459,6 +3614,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+        # 33-34. the quality recipe: the smoke-scale control (quality_real_256's tree written beside
+        # it), then that tree's first epoch
+        tiles = start_quality_tiles(work)
+        control = timed("quality-control", phase_quality_control, card, work)
+        quality_real = timed("quality-real", phase_quality_real, card, work, tiles)
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # 26. FastDropout(impl="bits") on the card
     gc.collect()
     torch.cuda.empty_cache()
@@ -3508,6 +3671,17 @@ def main() -> int:
         for kernel, key in (("K1-fwd", "k1_fwd_launches"), ("K1-bwd", "k1_bwd_launches"), ("K2", "k2_launches"),
                             ("K3", "k3_launches"), ("K4", "k4_launches"), ("K5", "k5_launches"))
     }
+    # phases 33-34: the quality control's four seeds, quality_real_256's epoch and its eval_quality
+    quality_launches = {
+        kernel: {"quality_control": control["launches"][kernel],
+                 "train_quality_real": quality_real["train_launches"][kernel],
+                 "eval_quality_real": quality_real["eval_launches"][kernel]}
+        for kernel in ("K1-fwd", "K1-bwd", "K2", "K3", "K4", "K5")
+    }
+    log("slice-15 " + json.dumps({
+        "quality_control": {k: control[k] for k in ("seeds", "mean_val_loss", "mean_ssim", "seconds")},
+        "quality_real": {k: quality_real[k] for k in ("tiles_s", "cache_equal", "step_ms", "peak_gib", "val_loss",
+                                                      "test_loss", "eval_quality", "seconds")}}))
     log("slice-13 " + json.dumps({
         "serve_sealed": {name: {k: r[k] for k in ("export_s", "program_mb", "load_s", "first_call_s", "loaded_ms",
                                                   "direct_ms", "max_abs_err", "velocity_evals")}
@@ -3515,7 +3689,7 @@ def main() -> int:
         "convert_ckpt_s": converted["convert_s"], "export_model_s": converted["export_model_s"],
         "data_sanity_s": sanity["seconds"], "train_s2b": s2b}))
 
-    # 33. result lines
+    # 35. result lines
     def row(name, source, replaces, case, launches, by_path, passed):
         return {
             "name": name,
@@ -3557,7 +3731,8 @@ def main() -> int:
              "train_masked_conditioned": cond_summary["k1_fwd_launches"], "serve_toggle": infer_cond["serve"]["k1_launches"],
              **{n.replace("-", "_"): m["k1_fwd_launches"] for n, m in mask_paths.items()}, **mt_launches["K1-fwd"],
              **slice_launches["K1-fwd"], "train_ddp": ddp_summary["k1_fwd_launches"],
-             "train_ddp_2rank": sum(ddp2_summary["k1_fwd_launches"]), **tools_launches["K1-fwd"]},
+             "train_ddp_2rank": sum(ddp2_summary["k1_fwd_launches"]), **tools_launches["K1-fwd"],
+             **quality_launches["K1-fwd"]},
             all(c["ok"] for c in k1["cases"]) and parity["ok"]),
         row("attention_bwd (K1-bwd)", "stain2stain_tpu_torch/csrc/attention_bwd.cu",
             "stain2stain_tpu/ops/pallas_attention.py:78", k1_bwd["cases"][0], train_summary["k1_bwd_launches"],
@@ -3568,12 +3743,13 @@ def main() -> int:
              "train_masked_conditioned": cond_summary["k1_bwd_launches"],
              **{n.replace("-", "_"): m["k1_bwd_launches"] for n, m in mask_paths.items()}, **mt_launches["K1-bwd"],
              **slice_launches["K1-bwd"], "train_ddp": ddp_summary["k1_bwd_launches"],
-             "train_ddp_2rank": sum(ddp2_summary["k1_bwd_launches"]), **tools_launches["K1-bwd"]},
+             "train_ddp_2rank": sum(ddp2_summary["k1_bwd_launches"]), **tools_launches["K1-bwd"],
+             **quality_launches["K1-bwd"]},
             all(c["ok"] for c in k1_bwd["cases"]) and grad["ok"] and masks["mask-grad-parity"]["ok"]),
     ] + [
         row(title, f"stain2stain_tpu_torch/csrc/{source}", replaces, convs["rows"][k][0], fused_summary[key],
             {"train_fused": fused_summary[key], "train_fused_remat": fused_remat_summary[key], **mt_launches[k],
-             **slice_launches[k], **tools_launches[k]},
+             **slice_launches[k], **tools_launches[k], **quality_launches[k]},
             all(c["ok"] for c in convs["rows"][k]) and conv_ok)
         for k, (title, source, replaces, key) in conv_sources.items()
     ]

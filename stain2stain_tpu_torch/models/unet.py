@@ -155,6 +155,44 @@ def _conv(module: nn.Module, h: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
     return F.linear(h, w, b)
 
 
+def _zero_init(layer: nn.Module) -> None:
+    """Zero a layer's weight and bias and mark it so :func:`jax_init_` leaves it zero."""
+    nn.init.zeros_(layer.weight)
+    nn.init.zeros_(layer.bias)
+    layer.zero_init = True
+
+
+def jax_init_(net: nn.Module) -> None:
+    """Initialize ``net`` as the JAX package's flax UNet is (JAX ``unet.py:113,
+    189``, flax's defaults elsewhere): every conv and dense kernel
+    lecun-normal (a normal truncated at two deviations, variance 1/fan_in),
+    every bias zero, a class embedding normal with variance 1/features; the
+    zero-initialized output layers stay zero. torch's own defaults draw
+    weights with a third of that variance and nonzero biases, and the port
+    trained to a worse field with them (``tests/test_torch_quality.py``)."""
+    for m in net.modules():
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)) and not getattr(m, "zero_init", False):
+            fan_in = m.weight[0].numel()
+            _truncated_normal_(m.weight, (1.0 / fan_in) ** 0.5 / 0.87962566103423978)  # flax's correction
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.Embedding):
+            nn.init.normal_(m.weight, std=m.embedding_dim ** -0.5)
+
+
+@torch.no_grad()
+def _truncated_normal_(w: torch.Tensor, std: float) -> None:
+    """``w`` from a normal truncated at ±2, times ``std``, by redrawing the
+    values outside (about 5 %): the distribution of ``nn.init.trunc_normal_``,
+    whose inverse-CDF draw takes seconds for the flagship on the CPU."""
+    flat = w.view(-1).normal_()
+    redraw = torch.nonzero(flat.abs() > 2).squeeze(1)
+    while redraw.numel():
+        values = torch.randn(redraw.numel(), dtype=w.dtype, device=w.device)
+        flat[redraw] = values
+        redraw = redraw[values.abs() > 2]
+    w.mul_(std)
+
+
 def _upsample_nearest(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
@@ -193,8 +231,7 @@ class ResBlock(nn.Module):
             FastDropout(dropout),
             nn.Conv2d(out_channels, out_channels, 3, padding=1),
         )
-        nn.init.zeros_(self.out_layers[3].weight)
-        nn.init.zeros_(self.out_layers[3].bias)
+        _zero_init(self.out_layers[3])
         self.skip_connection = (
             nn.Conv2d(channels, out_channels, 1) if channels != out_channels else nn.Identity()
         )
@@ -300,8 +337,7 @@ class AttentionBlock(nn.Module):
         self.norm = _norm(channels)
         self.qkv = nn.Conv1d(channels, 3 * channels, 1)
         self.proj_out = nn.Conv1d(channels, channels, 1)
-        nn.init.zeros_(self.proj_out.weight)
-        nn.init.zeros_(self.proj_out.bias)
+        _zero_init(self.proj_out)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         b, c, height, width = x.shape
@@ -466,14 +502,14 @@ class UNetModel(nn.Module):
 
         self.out_channels = out_channels if out_channels is not None else in_ch
         self.out = nn.Sequential(_norm(ch), nn.SiLU(), nn.Conv2d(ch, self.out_channels, 3, padding=1))
-        nn.init.zeros_(self.out[2].weight)
-        nn.init.zeros_(self.out[2].bias)
+        _zero_init(self.out[2])
         # every ResBlock's slot in the seeds drawn ahead: forward order is
         # registration order
         self._resblocks = [m for m in self.modules() if isinstance(m, ResBlock)]
         for i, block in enumerate(self._resblocks):
             block.seed_slot = i
         self.to(device)
+        jax_init_(self)  # where the weights lie: on the card it takes milliseconds
 
     def _run(self, mods, h: torch.Tensor, emb: torch.Tensor, seeds: Optional[list]) -> torch.Tensor:
         for m in mods:
@@ -574,4 +610,4 @@ class UNetModel(nn.Module):
         return h.to(torch.float32).permute(0, 2, 3, 1)
 
 
-__all__ = ["UNetModel", "ResBlock", "AttentionBlock", "Downsample", "Upsample", "remat_mode"]
+__all__ = ["UNetModel", "ResBlock", "AttentionBlock", "Downsample", "Upsample", "jax_init_", "remat_mode"]
