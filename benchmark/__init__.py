@@ -1,0 +1,1 @@
+"""Benchmark harness of the PyTorch and CUDA port (``python3 benchmark/run.py``)."""

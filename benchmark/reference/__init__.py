@@ -1,0 +1,1 @@
+"""The plain reference: plain PyTorch and NumPy, importing nothing of the program."""
