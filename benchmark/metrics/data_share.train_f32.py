@@ -1,0 +1,9 @@
+"""data_share.train_f32: the share of the float32 cell's traced train steps
+spent fetching and preparing the batch, in %
+(:func:`benchmark.spans.data_share`)."""
+
+from benchmark.spans import data_share
+
+
+def read(record):
+    return data_share(record, "data_share.train_f32")

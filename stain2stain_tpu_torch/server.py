@@ -21,6 +21,17 @@ refused (HTTP 400 for a request). Other conditions are fixed for the
 server's life and bound into the generator (``**gen_kwargs``, as JAX
 ``server.py:67, :90-94``): ``mask=`` of the tile batch's shape,
 ``(batch, tile, tile, 1)``, serves a mask-conditioned task.
+
+Spans (:mod:`.utils.tracing`): any ``torch.profiler`` session that records
+while a request begins traces it whole, as a root ``serve.request``
+(attribute ``pixels``) over ``serve.read`` (the body), ``serve.decode``
+(the image), ``serve.normalize``, ``serve.lock_wait`` (asking for the lock
+until holding it), ``serve.locked`` (the tiled translation under the lock,
+attribute ``served``: the requests the lock had served before it, and the
+``wsi.*`` spans inside), ``serve.denormalize``, ``serve.encode`` (the PNG)
+and ``serve.reply``. A direct :meth:`TranslationServer.translate` is a root
+of its own. ``tracing.spans()`` returns them after the session; the
+session's Chrome trace shows them as CPU events.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from typing import Optional
 import numpy as np
 
 from .ops.image import denormalize_np, normalize_uint8_np
+from .utils import tracing
 from .utils.pylogger import RankedLogger
 from .wsi import make_conditioned_tiled_generator, make_tiled_generator, translate_large_image
 
@@ -105,13 +117,22 @@ class TranslationServer:
             gen = lambda b: self._cond_gen(b, cls)  # noqa: E731
         else:
             gen = self._gen
-        normalized = normalize_uint8_np(img_uint8)
-        with self._lock:
-            out = translate_large_image(
-                gen, normalized, tile=self.tile, overlap=self.overlap, batch_size=self.batch
-            )
-            self.requests_served += 1
-        return denormalize_np(out)
+        with tracing.root("serve.request") as request:
+            request.set(pixels=img_uint8.shape[0] * img_uint8.shape[1])
+            with tracing.span("serve.normalize"):
+                normalized = normalize_uint8_np(img_uint8)
+            with tracing.span("serve.lock_wait"):
+                self._lock.acquire()
+            try:
+                with tracing.span("serve.locked", served=self.requests_served):
+                    out = translate_large_image(
+                        gen, normalized, tile=self.tile, overlap=self.overlap, batch_size=self.batch
+                    )
+                self.requests_served += 1
+            finally:
+                self._lock.release()
+            with tracing.span("serve.denormalize"):
+                return denormalize_np(out)
 
     @property
     def info(self) -> dict:
@@ -190,10 +211,16 @@ def _make_handler(server: TranslationServer):
                 query = parse_qs(parsed.query)
                 target_class = query.get("target_class")
                 target_class = int(target_class[0]) if target_class else None
-                body = self.rfile.read(length)
-                img = _decode_request(body, self.headers.get("Content-Type", ""))
-                out01 = server.translate(img, target_class=target_class)
-                self._reply(200, _encode_png(out01), "image/png")
+                with tracing.root("serve.request"):
+                    with tracing.span("serve.read"):
+                        body = self.rfile.read(length)
+                    with tracing.span("serve.decode"):
+                        img = _decode_request(body, self.headers.get("Content-Type", ""))
+                    out01 = server.translate(img, target_class=target_class)
+                    with tracing.span("serve.encode"):
+                        png = _encode_png(out01)
+                    with tracing.span("serve.reply"):
+                        self._reply(200, png, "image/png")
             except ValueError as exc:  # the client's fault: reject, keep serving
                 log.warning(f"/translate rejected: {exc}")
                 self._reply(400, str(exc).encode(), "text/plain")

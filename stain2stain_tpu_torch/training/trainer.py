@@ -17,7 +17,17 @@ process a device (counterpart of ``stain2stain_tpu/training/trainer.py``).
   ``"jax"`` or ``"advanced"`` runs ``torch.profiler`` over the fit loop
   (after the sanity validation, CUDA activity too on the card) and writes
   a Chrome trace into ``<default_root_dir>/profile/``, the directory the
-  JAX trainer's trace goes to.
+  JAX trainer's trace goes to;
+- spans (:mod:`..utils.tracing`): any ``torch.profiler`` session, such as
+  ``trainer.profiler=advanced``'s, records the roots that begin while it
+  runs: ``train.step`` (attribute ``step``; it ends before the step's
+  callbacks) over ``train.data_wait`` (the loader's ``next``),
+  ``train.prepare`` (``device_fields`` and ``prepare_batch``),
+  ``train.forward_backward``, ``train.optimizer`` (clipping, ``step``,
+  ``zero_grad``) and, on steps that log, ``train.log``; and the roots
+  ``train.epoch_end`` and ``train.validate`` (``train.test`` for test
+  runs). They appear in the Chrome trace as CPU events and in
+  ``tracing.spans()`` after the session.
 
 Randomness: every train step draws from a ``torch.Generator`` seeded from
 (seed, step) — crop offsets, flips, the flow-matching ``t`` and the dropout
@@ -67,6 +77,7 @@ PRNG implementations.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 import os
 import time
@@ -83,6 +94,7 @@ from ..parallel.distributed import host_barrier, is_initialized, local_rank, pro
 from ..parallel.launch import requested_devices
 from ..parallel.mesh import create_mesh, sharded_batch, sharded_generator
 from ..parallel.zero import ShardedOptimizer
+from ..utils import tracing
 from ..utils.pylogger import RankedLogger
 from ..utils.seed import current_seed
 from .callbacks import Callback, ModelCheckpoint
@@ -98,6 +110,7 @@ _BF16_PRECISION = ("bf16", "bf16-mixed", "bf16-true", "16-mixed", "16", "16-true
 
 # streams of the per-(seed, index) generators
 _TRAIN_STREAM, _EVAL_STREAM, _AUX_STREAM = 0, 1, 2
+_END = object()  # what the train loader's iterator gives when it is spent
 
 
 def seeded_generator(seed: int, stream: int, index: int, rows: tuple = (0, 1)) -> torch.Generator:
@@ -343,18 +356,20 @@ class Trainer:
     def _train_step(self, task, batch: tuple, augment: Optional[dict]) -> dict:
         state = self.state
         generator = seeded_generator(current_seed(), _TRAIN_STREAM, state.step, self._rows())
-        prepared = task.prepare_batch(task.device_fields(batch), generator, train=True, augment=augment)
-        with self._sharded():
+        with tracing.span("train.prepare"):
+            prepared = task.prepare_batch(task.device_fields(batch), generator, train=True, augment=augment)
+        with tracing.span("train.forward_backward"), self._sharded():
             metrics = self._forward_backward(task, prepared, generator)
-        # DDP has averaged the gradients over the ranks by now: the norm is the global one
-        if self.gradient_clip_val:
-            grads = [p.grad for p in task.trainable_parameters() if p.grad is not None]
-            gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32).square()) for g in grads))
-            scale = torch.clamp(self.gradient_clip_val / (gnorm + 1e-6), max=1.0)
-            for g in grads:
-                g.mul_(scale.to(g.dtype))
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
+        with tracing.span("train.optimizer"):
+            # DDP has averaged the gradients over the ranks by now: the norm is the global one
+            if self.gradient_clip_val:
+                grads = [p.grad for p in task.trainable_parameters() if p.grad is not None]
+                gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32).square()) for g in grads))
+                scale = torch.clamp(self.gradient_clip_val / (gnorm + 1e-6), max=1.0)
+                for g in grads:
+                    g.mul_(scale.to(g.dtype))
+            state.optimizer.step()
+            state.optimizer.zero_grad(set_to_none=True)
         state.step += 1
         return metrics
 
@@ -480,27 +495,35 @@ class Trainer:
                 val_every = max(1, int(self.val_check_interval))
         epoch_metrics: dict[str, list] = {}
         step_times: list[float] = []
+        batches = iter(loader)
 
-        for i, batch in enumerate(loader):
-            if i >= n_batches:
-                break
-            self._peek_train = batch
-            t0 = time.perf_counter()
-            metrics = self._train_step(task, batch, augment)
-            if self.profiler == "simple":
-                self._sync()
-                step_times.append(time.perf_counter() - t0)
-            if self.detect_anomaly:
-                loss_val = self._mean_over_ranks([metrics["loss"]])[0]
-                if not math.isfinite(loss_val):
-                    raise FloatingPointError(f"Non-finite loss at step {self.global_step}: {loss_val}")
-            self.global_step += 1
-            for k, v in metrics.items():
-                epoch_metrics.setdefault(k, []).append(v)
-            if self.global_step % self.log_every_n_steps == 0:
-                keys = sorted(metrics)
-                self.log_metrics(dict(zip((f"train/{k}" for k in keys),
-                                          self._mean_over_ranks([metrics[k] for k in keys]))))
+        for i in itertools.count():
+            # the root ends before the callbacks: they are the caller's code
+            with tracing.root("train.step", step=self.global_step) as step:
+                with tracing.span("train.data_wait"):
+                    batch = next(batches, _END)
+                if batch is _END or i >= n_batches:
+                    step.drop()
+                    break
+                self._peek_train = batch
+                if self.profiler == "simple":
+                    t0 = time.perf_counter()
+                metrics = self._train_step(task, batch, augment)
+                if self.profiler == "simple":
+                    self._sync()
+                    step_times.append(time.perf_counter() - t0)
+                if self.detect_anomaly:
+                    loss_val = self._mean_over_ranks([metrics["loss"]])[0]
+                    if not math.isfinite(loss_val):
+                        raise FloatingPointError(f"Non-finite loss at step {self.global_step}: {loss_val}")
+                self.global_step += 1
+                for k, v in metrics.items():
+                    epoch_metrics.setdefault(k, []).append(v)
+                if self.global_step % self.log_every_n_steps == 0:
+                    with tracing.span("train.log"):
+                        keys = sorted(metrics)
+                        self.log_metrics(dict(zip((f"train/{k}" for k in keys),
+                                                  self._mean_over_ranks([metrics[k] for k in keys]))))
             for cb in self.callbacks:
                 cb.on_train_batch_end(self, task, metrics)
             done = i + 1
@@ -512,9 +535,11 @@ class Trainer:
                     cb.on_validation_epoch_end(self, task)
             if self.should_stop or (self.max_steps > 0 and self.global_step >= self.max_steps):
                 break
-        keys = sorted(epoch_metrics)
-        local = [torch.stack([torch.as_tensor(v, dtype=torch.float32) for v in epoch_metrics[k]]).mean() for k in keys]
-        self.log_metrics(dict(zip((f"train/{k}" for k in keys), self._mean_over_ranks(local))))
+        with tracing.root("train.epoch_end", step=self.global_step):
+            keys = sorted(epoch_metrics)
+            local = [torch.stack([torch.as_tensor(v, dtype=torch.float32) for v in epoch_metrics[k]]).mean()
+                     for k in keys]
+            self.log_metrics(dict(zip((f"train/{k}" for k in keys), self._mean_over_ranks(local))))
         if step_times:
             ordered = sorted(step_times)
             self.print(
@@ -531,7 +556,7 @@ class Trainer:
         agg: dict[str, list] = {}
         weights: list[int] = []
         real_of = getattr(loader, "real_batch_size", None)
-        with torch.no_grad():
+        with tracing.root("train.validate" if prefix == "val" else f"train.{prefix}"), torch.no_grad():
             for i, batch in enumerate(loader):
                 if i >= n_batches:
                     break

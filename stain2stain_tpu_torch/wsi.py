@@ -6,6 +6,13 @@ of every image: the last partial batch is zero-padded and the padding rows
 are dropped. Overlap seams are feather-blended: each tile's weight ramps
 linearly from 1/(overlap+1) at its edge to 1 inside, and the accumulated
 output is divided by the accumulated weight.
+
+Under a traced root (:mod:`.utils.tracing`, e.g. the server's
+``serve.request``) each tile batch is a ``wsi.batch`` span with the
+attributes ``tiles`` (real tiles) and ``slots`` (the fixed batch size), and
+holds ``wsi.gather`` (stack and padding), the generator's ``wsi.h2d``,
+``wsi.generate`` and ``wsi.d2h`` (the copy back, with the wait for the card)
+and ``wsi.stitch`` (the feather accumulation).
 """
 
 from __future__ import annotations
@@ -14,6 +21,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from .utils import tracing
 
 __all__ = [
     "tile_starts",
@@ -75,16 +84,19 @@ def translate_large_image(
     wsum = np.zeros((hp, wp, 1), np.float32)
     for i in range(0, len(coords), batch_size):
         chunk = coords[i : i + batch_size]
-        batch = np.stack([image[y : y + tile, x : x + tile] for y, x in chunk])
-        if len(chunk) < batch_size:  # pad to the fixed batch shape
-            pad = np.zeros((batch_size - len(chunk),) + batch.shape[1:], batch.dtype)
-            batch = np.concatenate([batch, pad])
-        gen = np.asarray(generate_fn(batch), np.float32)
-        if out is None:
-            out = np.zeros((hp, wp, gen.shape[-1]), np.float32)
-        for (y, x), g in zip(chunk, gen):
-            out[y : y + tile, x : x + tile] += g * weights
-            wsum[y : y + tile, x : x + tile] += weights
+        with tracing.span("wsi.batch", tiles=len(chunk), slots=batch_size):
+            with tracing.span("wsi.gather"):
+                batch = np.stack([image[y : y + tile, x : x + tile] for y, x in chunk])
+                if len(chunk) < batch_size:  # pad to the fixed batch shape
+                    pad = np.zeros((batch_size - len(chunk),) + batch.shape[1:], batch.dtype)
+                    batch = np.concatenate([batch, pad])
+            gen = np.asarray(generate_fn(batch), np.float32)
+            with tracing.span("wsi.stitch"):
+                if out is None:
+                    out = np.zeros((hp, wp, gen.shape[-1]), np.float32)
+                for (y, x), g in zip(chunk, gen):
+                    out[y : y + tile, x : x + tile] += g * weights
+                    wsum[y : y + tile, x : x + tile] += weights
     if out is None:
         raise RuntimeError("no tiles were generated")
     return (out / wsum)[:h, :w]
@@ -116,8 +128,12 @@ def make_tiled_generator(task, num_steps: int, **gen_kwargs) -> Callable[[np.nda
     bound = _bind(task, gen_kwargs)
 
     def gen(batch: np.ndarray) -> np.ndarray:
-        x = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(task.device)
-        return _image(task.generate(x, num_steps=num_steps, **bound)).to(torch.float32).cpu().numpy()
+        with tracing.span("wsi.h2d"):
+            x = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(task.device)
+        with tracing.span("wsi.generate"):
+            out = task.generate(x, num_steps=num_steps, **bound)
+        with tracing.span("wsi.d2h"):
+            return _image(out).to(torch.float32).cpu().numpy()
 
     return gen
 
@@ -129,8 +145,11 @@ def make_conditioned_tiled_generator(task, num_steps: int, **gen_kwargs) -> Call
     bound = _bind(task, gen_kwargs)
 
     def gen(batch: np.ndarray, target_class: int) -> np.ndarray:
-        x = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(task.device)
-        out = task.generate(x, num_steps=num_steps, target_class=int(target_class), **bound)
-        return _image(out).to(torch.float32).cpu().numpy()
+        with tracing.span("wsi.h2d"):
+            x = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(task.device)
+        with tracing.span("wsi.generate"):
+            out = task.generate(x, num_steps=num_steps, target_class=int(target_class), **bound)
+        with tracing.span("wsi.d2h"):
+            return _image(out).to(torch.float32).cpu().numpy()
 
     return gen
