@@ -11,7 +11,7 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    ptxas must report no spills for the kernels of ``SPILL_CHECKED``: the
    bf16 attention kernels, the f32 K1-fwd kernel, the six 3xTF32 kernels of
    the f32 K1-bwd (passes 2 and 3 at d 16, 32, 64), the wgmma kernels of
-   K2/K3 and K5, and K4.
+   K2/K3 and K5, K4, and the hash dropout kernel.
 3. K1-fwd (``csrc/attention_fwd.cu``) against its plain PyTorch version on
    the card, output and row log-sum-exp, with the stated tolerances: the
    serving shapes (f32 and bf16), the training shapes (bf16 at 256 px, f32
@@ -231,11 +231,20 @@ Phases (any failure ends the script with a non-zero exit and no result line):
     cv2 decode of the PNGs bit for bit; ``eval_quality`` at 2 euler steps on
     its checkpoint (two test batches of 16) prints one JSON line (SSIM in
     [-1, 1], a finite PSNR), K1-fwd once a batch.
-35. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5, each with ``ms`` and
-    ``queued_ms``, and launches by path, the multitask paths', phases
-    22–25's, 27–28's, 29–32's and 33–34's included), the seconds of every
-    phase, the card line, and ``{"ok": true, "device": ...}`` as the last
-    line.
+35. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5 and the hash dropout,
+    each with ``ms`` and ``queued_ms``, and launches by path, the multitask
+    paths', phases 22–25's, 27–28's, 29–32's and 33–34's included), the
+    seconds of every phase, the card line, and ``{"ok": true, "device":
+    ...}`` as the last line.
+36. ``dropout-kernel`` (run after phase 4): ``hash_dropout``'s kernel
+    (``csrc/dropout.cu``) against the plain ``x * hash_mask(...)``, forward
+    and gradient, bit for bit, at the mask net's four dropout shapes, an odd
+    shape and a non-contiguous input, in float32, bfloat16 and float16, at
+    four seeds and two rates, with the largest absolute difference; its
+    times against the plain chain and its bound at the mask shapes in
+    float32 (``phase_dropout_kernel``). Each train phase's
+    ``dropout_launches`` must be its net's active dropout layers x (2 x steps
+    + the remat recomputes) without fused_conv, and 0 with it.
 
 With ``--profile`` it also profiles a tile batch and a request, and a train
 step of each path (``phase_profile_train``), the binary multitask study's
@@ -404,6 +413,7 @@ SPILL_CHECKED = {
     "conv3x3_fwd.cu": ("conv3x3_fwd_kernel",),
     "prologue_grad.cu": ("prologue_grad_kernel",),
     "conv3x3_wgrad.cu": ("conv3x3_wgrad_kernel",),
+    "dropout.cu": ("hash_dropout_kernel",),
 }
 
 
@@ -1191,6 +1201,7 @@ def phase_train(card: str, work: Path, name: str = "train", callbacks: Optional[
 
     from stain2stain_tpu_torch.config import compose
     from stain2stain_tpu_torch.models.unet import AttentionBlock
+    from stain2stain_tpu_torch.ops.dropout import FastDropout
     from stain2stain_tpu_torch.train import train
 
     torch.backends.cuda.matmul.allow_tf32 = False  # torch's defaults for training:
@@ -1227,6 +1238,7 @@ def phase_train(card: str, work: Path, name: str = "train", callbacks: Optional[
     want_steps = PATH_STEPS.get(name, 8)
     # attention layers a forward: the flagship's mid block, or level 3 and the mid block
     attention = sum(isinstance(m, AttentionBlock) for m in task.net.modules())
+    dropout_layers = sum(isinstance(m, FastDropout) and m.impl == "hash" and 0 < m.rate < 1 for m in task.net.modules())
     durations = [b - a for a, b in zip([clock.t0] + clock.ends[:-1], clock.ends)]
     steady = durations[2:8] if steps >= 8 else durations[1:]  # steps 3-8, or 2-4 on the 4-step paths
     step_ms = statistics.median(steady) * 1e3 if steady else float("nan")
@@ -1237,7 +1249,8 @@ def phase_train(card: str, work: Path, name: str = "train", callbacks: Optional[
         step_ms_median_3_8=step_ms, step_ms=[d * 1e3 for d in durations], tiles_per_s=batch / (step_ms / 1e3),
         peak_mem_gib=peak_gib, peak_reserved_gib=peak_reserved_gib, wall_s=wall_s, losses=clock.losses, forwards=clock.forwards[0],
         k1_fwd_launches=fwd_launches, k1_bwd_launches=bwd_launches,
-        k2_launches=k2, k3_launches=k3, k4_launches=k4, k5_launches=k5,
+        k2_launches=k2, k3_launches=k3, k4_launches=k4, k5_launches=k5, dropout_launches=launches["dropout"],
+        dropout_layers=dropout_layers,
         val_loss=metrics.get("val/loss"), test_loss=metrics.get("test/loss"),
         best=Path(ckpt.best_model_path).name if ckpt and ckpt.best_model_path else None,
         best_path=ckpt.best_model_path if ckpt else None,
@@ -1292,6 +1305,15 @@ def phase_train(card: str, work: Path, name: str = "train", callbacks: Optional[
             f"K2-K5 launches {(k2, k3, k4, k5)} != ({want_fwd}, {want_bwd}, {want_bwd}, {want_bwd}): "
             f"{FLAGSHIP_FUSED_CONVS} per net forward (and per recompute under level remat) and per backward "
             "pass with fused_conv, none without"
+        )
+    # the hash dropout kernel: once a forward and once a backward for each active
+    # layer of the unfused net, and once more a recompute under level remat;
+    # never with fused_conv, where every ResBlock drops inside K2
+    want_dropout = 0 if fused else dropout_layers * (2 * steps + recomputes)
+    if summary["dropout_launches"] != want_dropout:
+        raise AssertionError(
+            f"{name}: the hash dropout kernel launched {summary['dropout_launches']} times, not {want_dropout}: "
+            f"{dropout_layers} layers x (2 x {steps} steps + {recomputes} recomputes) without fused_conv, none with it"
         )
     if name == "train-fused":
         # the fused run's weights through the unfused net: the same val loss, since
@@ -2809,6 +2831,111 @@ def phase_dropout_bits(card: str) -> dict:
     return out
 
 
+# the mask net's dropout shapes at 512 px, batch 8 (NCHW) and their ResBlocks: 22 dropout layers a forward
+MASK_DROPOUT_SHAPES = (((8, 128, 512, 512), 5), ((8, 256, 256, 256), 5), ((8, 256, 128, 128), 5),
+                       ((8, 512, 64, 64), 7))
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit (signed zeros included), NaN where the other is NaN."""
+    import torch
+
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.float16: torch.int16}[a.dtype]
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(a.view(ints)[~nan], b.view(ints)[~nan]))
+
+
+def max_abs_diff(a, b) -> float:
+    """The largest |a - b| in float32: 0 where both are NaN or equal (infinities
+    too), infinity where only one is NaN."""
+    import torch
+
+    a, b = a.float(), b.float()
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    diff = torch.nan_to_num(torch.where(same, 0.0, (a - b).abs()), nan=math.inf)
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def phase_dropout_kernel(card: str) -> dict:
+    """``dropout-kernel``: ``hash_dropout`` on the card (``csrc/dropout.cu``)
+    against the plain ``x * hash_mask(...)``, forward and gradient
+    (``torch.autograd.grad`` with a random dy), bit for bit: the mask net's
+    four dropout shapes, an odd shape (2, 6, 5, 7) whose planes take no
+    vectors (with -0, ±inf and NaN in x), a non-contiguous input; float32,
+    bfloat16 and float16; seeds 0, 12345, 2^31+7 and 2^32-1; rates 0.1 and
+    0.5. One launch a forward and one a backward. Then times of the kernel
+    (``ms`` and ``queued_ms``) against the plain chain at each mask shape in
+    float32, with the bound (a read and a write of x at 3.35 TB/s), and the
+    kernel's device milliseconds a mask step (44 calls)."""
+    import torch
+
+    from stain2stain_tpu_torch.ops.dropout import hash_dropout, hash_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    odd = torch.randn(2, 6, 5, 7, device="cuda", generator=gen)
+    odd.view(-1)[:5] = torch.tensor([-0.0, float("inf"), float("-inf"), float("nan"), 0.0])
+    inputs = [(list(shape), "contiguous", torch.randn(shape, device="cuda", generator=gen))
+              for shape, _ in MASK_DROPOUT_SHAPES]
+    inputs += [([2, 6, 5, 7], "odd shape, special values", odd),
+               ([2, 64, 96, 80], "non-contiguous (a transposed view)",
+                torch.randn(2, 64, 80, 96, device="cuda", generator=gen).transpose(2, 3))]
+    cases, bad = [], []
+    before = hash_dropout.launches
+    calls, max_abs_err = 0, 0.0
+    for shape, what, base in inputs:
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            x = base.to(dtype).detach().requires_grad_()  # keeps the view's strides
+            dy = torch.empty_like(x).copy_(torch.randn(x.shape, device="cuda", generator=gen))
+            for seed in (0, 12345, 2**31 + 7, 2**32 - 1):
+                for rate in (0.1, 0.5):
+                    y = hash_dropout(x, seed, rate)
+                    (dx,) = torch.autograd.grad(y, x, dy)
+                    calls += 2
+                    with torch.no_grad():
+                        mask = hash_mask(seed, tuple(x.shape), rate, dtype, "cuda")
+                        ok = same_bits(y, x * mask) and same_bits(dx, dy * mask)
+                        err = max(max_abs_diff(y, x * mask), max_abs_diff(dx, dy * mask))
+                    max_abs_err = max(max_abs_err, err)
+                    row = dict(shape=shape, what=what, dtype=str(dtype).split(".")[-1], seed=seed, rate=rate,
+                               contiguous_input=x.is_contiguous(), bit_identical=ok, max_abs_err=err)
+                    cases.append(row)
+                    if not ok:
+                        bad.append(row)
+                    del y, dx, mask
+            del x, dy
+        torch.cuda.empty_cache()
+    launches = hash_dropout.launches - before
+    log("dropout-kernel-checks " + json.dumps({"cases": len(cases), "bad": bad, "launches": launches,
+                                                "calls": calls, "max_abs_err": max_abs_err}))
+
+    timings, step_ms = [], 0.0
+    seed, rate = 2**31 + 7, 0.1
+    for shape, blocks in MASK_DROPOUT_SHAPES:
+        x = torch.randn(shape, device="cuda", generator=gen)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: hash_dropout(x, seed, rate), repeats=20)
+            queued_ms = cuda_queued_ms(lambda: hash_dropout(x, seed, rate))
+            plain_ms = cuda_ms(lambda: x * hash_mask(seed, shape, rate, x.dtype, "cuda"), repeats=5)
+            plain_queued_ms = cuda_queued_ms(lambda: x * hash_mask(seed, shape, rate, x.dtype, "cuda"), calls=5)
+        bound_ms = 2 * x.numel() * x.element_size() / PEAK_BYTES_PER_S * 1e3
+        row = dict(card=card, shape=list(shape), dtype="float32", blocks=blocks, ms=ms, queued_ms=queued_ms,
+                   plain_ms=plain_ms, plain_queued_ms=plain_queued_ms, bound_ms=bound_ms, bound_by="bytes",
+                   bandwidth_share=bound_ms / queued_ms)
+        log("dropout-kernel " + json.dumps(row))
+        timings.append(row)
+        step_ms += 2 * blocks * queued_ms  # each layer's forward and backward
+        del x
+        torch.cuda.empty_cache()
+    out = dict(card=card, cases=len(cases), bad=bad, launches=launches, calls=calls, max_abs_err=max_abs_err,
+               timings=timings, step_ms=step_ms)
+    log("dropout-kernel-step " + json.dumps({"calls_a_step": 2 * sum(b for _, b in MASK_DROPOUT_SHAPES),
+                                             "queued_ms_a_step": step_ms}))
+    if bad or launches != calls:
+        raise AssertionError(f"the dropout kernel is not the plain product bit for bit, or launched {launches} "
+                             f"times for {calls} calls: {bad}")
+    return out
+
+
 def _device_us(event) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, name):
@@ -3494,6 +3621,8 @@ def main() -> int:
     # 3-4. K1-fwd and K1-bwd against their plain versions
     k1 = timed("k1-fwd", phase_kernels, exp_per_s)
     k1_bwd = timed("k1-bwd", phase_k1_bwd, exp_per_s)
+    # 36. the hash dropout kernel against the plain product
+    dropout = timed("dropout-kernel", phase_dropout_kernel, card)
 
     # 5. the serving path at full width
     summary, net = timed("serve", phase_slice, card)
@@ -3752,6 +3881,18 @@ def main() -> int:
              **slice_launches[k], **tools_launches[k], **quality_launches[k]},
             all(c["ok"] for c in convs["rows"][k]) and conv_ok)
         for k, (title, source, replaces, key) in conv_sources.items()
+    ] + [
+        row("hash_dropout", "stain2stain_tpu_torch/csrc/dropout.cu",
+            "none: stain2stain_tpu/ops/dropout.py::hash_dropout is plain jnp, fused by XLA",
+            dict(dropout["timings"][0], max_abs_err=dropout["max_abs_err"], library_ms=None), train_summary["dropout_launches"],
+            {"train": train_summary["dropout_launches"], "train_f32": f32_summary["dropout_launches"],
+             "train_fused": fused_summary["dropout_launches"], "train_remat": remat_summary["dropout_launches"],
+             "train_fused_remat": fused_remat_summary["dropout_launches"],
+             "train_any2any": any2any_summary["dropout_launches"],
+             "train_masked_conditioned": cond_summary["dropout_launches"],
+             **{n.replace("-", "_"): m["dropout_launches"] for n, m in mask_paths.items()},
+             "train_s2b": s2b_summary["dropout_launches"]},
+            not dropout["bad"]),
     ]
     log(f"total: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -23,7 +23,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "conv3x3_fwd.cu", "prologue_grad.cu", "conv3x3_wgrad.cu")
+SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "conv3x3_fwd.cu", "prologue_grad.cu", "conv3x3_wgrad.cu",
+           "dropout.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

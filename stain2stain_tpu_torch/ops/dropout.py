@@ -26,16 +26,27 @@ seed, so its backward, too, regenerates the mask from the seed alone. torch's
 generator is not JAX's PRNG: the masks differ from JAX's draws (the keep
 probability and the scaling are the same).
 
-Plain PyTorch: XLA fused these masks without Pallas on the TPU.
+On a CUDA tensor, :func:`hash_dropout` (its forward and its backward) is
+one hand-written kernel, ``csrc/dropout.cu``, which applies
+:func:`hash_mask`'s mask in one read and one write and launches on torch's
+current stream, with nothing built on the host; it takes float32, bfloat16
+and float16 and raises a ``TypeError`` on any other dtype.
+``hash_dropout.launches`` counts its launches. On a CPU tensor it is the
+plain ``x * hash_mask(...)``, the reference; :func:`hash_mask` and
+:func:`hash_bits` stay plain PyTorch, as the JAX package left them to XLA,
+which fused them without Pallas on the TPU.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
 
+from .. import _build
 from ..parallel.mesh import generator_rows
 
 _M1 = 0x85EBCA6B
@@ -105,33 +116,86 @@ def bits_mask(seed: int, shape, rate: float, dtype, device=None) -> torch.Tensor
     return keep.to(dtype) * (1.0 / (1.0 - rate))
 
 
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # the kernel's dtype codes
+
+
+def _hash_masked(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    """``x * hash_mask(seed, ...)``: the kernel on CUDA tensors, the plain
+    product on the CPU."""
+    if x.device.type == "cuda":
+        return _launch_hash_dropout(x, seed, rate)
+    return x * hash_mask(seed, x.shape, rate, x.dtype, x.device)
+
+
+def _bits_masked(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    return x * bits_mask(seed, x.shape, rate, x.dtype, x.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _keep_scale(rate: float, dtype: torch.dtype) -> float:
+    """1/(1-rate) rounded as ``keep.to(dtype) * scale`` rounds it on the card:
+    to float32 (the scalar's op type), then to ``dtype``."""
+    return torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32).to(dtype).item()
+
+
+def _launch_hash_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    """``x * hash_mask(seed, x.shape, rate, ...)`` on the card through
+    ``csrc/dropout.cu``: one launch on the current stream, bit for bit the
+    plain product. Raises a ``TypeError`` on a dtype the kernel does not take."""
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"the hash dropout kernel takes {sorted(map(str, _KERNEL_DTYPES))}, not {x.dtype}")
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    b, c, h, w = x.shape
+    if y.numel() == 0:
+        return y
+    fn = getattr(_build.load("dropout.cu"), "s2s_hash_dropout")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), y.data_ptr(), _KERNEL_DTYPES[x.dtype], b * c, h * w, c, seed,
+                 _keep_threshold(rate), _keep_scale(rate, x.dtype), stream)
+    if err != 0:
+        raise RuntimeError(f"hash_dropout kernel launch failed: cudaError {err}")
+    hash_dropout.launches += 1
+    return y
+
+
 class _SeededDropout(torch.autograd.Function):
-    """``x · make_mask(seed)``; the backward regenerates the mask from the
-    seed, so nothing but the seed is saved."""
+    """``masked(x, seed, rate)`` = x · mask(seed); the backward applies the
+    same mask to dy, regenerated from the seed, so nothing but the seed is
+    saved."""
 
     @staticmethod
-    def forward(ctx, x, make_mask, seed: int, rate: float):
-        ctx.make_mask, ctx.seed, ctx.rate = make_mask, seed, rate
-        return x * make_mask(seed, x.shape, rate, x.dtype, x.device)
+    def forward(ctx, x, masked, seed: int, rate: float):
+        ctx.masked, ctx.seed, ctx.rate = masked, seed, rate
+        return masked(x, seed, rate)
 
     @staticmethod
     def backward(ctx, dy):
-        return dy * ctx.make_mask(ctx.seed, dy.shape, ctx.rate, dy.dtype, dy.device), None, None, None
+        return ctx.masked(dy, ctx.seed, ctx.rate), None, None, None
 
 
 def hash_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     """``x * mask / (1-rate)`` on NCHW ``x``; ``seed`` is a uint32 (a Python int),
-    ``rate`` a float in (0, 1). The backward regenerates the mask from the seed."""
+    ``rate`` a float in (0, 1). The backward regenerates the mask from the seed.
+    On the card both are ``csrc/dropout.cu`` (float32, bfloat16, float16)."""
     if x.ndim != 4:
         raise ValueError(f"hash_dropout takes NCHW tensors, got shape {tuple(x.shape)}")
-    return _SeededDropout.apply(x, hash_mask, int(seed) & 0xFFFFFFFF, float(rate))
+    return _SeededDropout.apply(x, _hash_masked, int(seed) & 0xFFFFFFFF, float(rate))
+
+
+hash_dropout.launches = 0
 
 
 def hardware_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     """``x * mask / (1-rate)`` with the mask of :func:`bits_mask`, any shape;
     ``seed`` is a uint32 (a Python int), ``rate`` a float in (0, 1). The
     backward regenerates the mask from the seed."""
-    return _SeededDropout.apply(x, bits_mask, int(seed) & 0xFFFFFFFF, float(rate))
+    return _SeededDropout.apply(x, _bits_masked, int(seed) & 0xFFFFFFFF, float(rate))
 
 
 _RANK_STRIDE = 0x9E3779B9  # 2^32 / golden ratio

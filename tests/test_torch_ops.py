@@ -392,6 +392,39 @@ def test_hash_dropout_forward_and_gradient_match_jax():
     torch.testing.assert_close(dx, _nchw(dy) * mask, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.float64])
+def test_hash_dropout_keeps_the_plain_path_on_cpu_tensors(dtype):
+    """CPU tensors, of any float dtype, take the plain ``x * hash_mask(...)``
+    both ways and never count a launch of the card's kernel."""
+    from stain2stain_tpu_torch import ops
+
+    ops.zero_launches()
+    x = torch.randn(2, 6, 5, 7).to(dtype).requires_grad_()
+    dy = torch.randn(x.shape).to(dtype)
+    y = tdropout.hash_dropout(x, 2**31 + 7, 0.1)
+    (dx,) = torch.autograd.grad(y, x, dy)
+    mask = tdropout.hash_mask(2**31 + 7, x.shape, 0.1, dtype)
+    assert torch.equal(y, x.detach() * mask) and torch.equal(dx, dy * mask)
+    assert ops.launches()["dropout"] == 0
+
+
+def test_hash_dropout_kernel_refuses_dtypes_it_does_not_take():
+    """The card's path checks the dtype before it builds or launches anything."""
+    with pytest.raises(TypeError, match="float64"):
+        tdropout._launch_hash_dropout(torch.ones(2, 6, 5, 7, dtype=torch.float64), 12345, 0.1)
+
+
+def test_dropout_launch_count_is_listed_and_reset():
+    from stain2stain_tpu_torch import _build, ops
+
+    assert "dropout.cu" in _build.SOURCES
+    assert "dropout" in ops.launches()
+    tdropout.hash_dropout.launches = 3
+    assert ops.launches()["dropout"] == 3
+    ops.zero_launches()
+    assert ops.launches()["dropout"] == 0 and tdropout.hash_dropout.launches == 0
+
+
 def test_fast_dropout_modes():
     drop = tdropout.FastDropout(0.5)
     x = torch.ones(2, 3, 4, 4)
