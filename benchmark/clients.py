@@ -2,8 +2,8 @@
 takes the server's interpreter lock: a closed loop of ``n`` clients, each
 posting the next region of the schedule and waiting for the reply, until
 the window ends. The requests in flight then are waited for. Imports no
-more than the standard library; talks to its parent over one pipe (no
-semaphores, so nothing in shared memory)."""
+more than the standard library; talks to its parent over one two-way pipe
+(no semaphores, so nothing in shared memory)."""
 
 from __future__ import annotations
 
@@ -14,9 +14,24 @@ import urllib.error
 import urllib.request
 
 
-def closed_loop(url: str, bodies: list, schedule: list, n: int, seconds: float, conn) -> None:
+def closed_loop(url: str, bodies: list, schedule: list, n: int, seconds: float, conn, hold: bool = False) -> None:
     """Sends ``("started", t0)`` on ``conn`` when the first requests go out,
-    then ``("done", {"start": t0, "requests": [...]})``."""
+    then ``("done", {"start": t0, "requests": [...]})``. With ``hold`` the
+    window ends at ``seconds`` or once the parent's ``("release",)`` has come
+    (or its end of the pipe has closed), whichever is later."""
+    released = threading.Event()
+
+    def wait_for_release():
+        try:
+            conn.recv()
+        except (EOFError, OSError):
+            pass
+        released.set()
+
+    if hold:
+        threading.Thread(target=wait_for_release, daemon=True).start()
+    else:
+        released.set()
     lock = threading.Lock()
     nxt = [0]
     records = []
@@ -26,7 +41,7 @@ def closed_loop(url: str, bodies: list, schedule: list, n: int, seconds: float, 
     def client():
         while True:
             with lock:
-                if time.monotonic() >= deadline or nxt[0] >= len(schedule):
+                if (time.monotonic() >= deadline and released.is_set()) or nxt[0] >= len(schedule):
                     return
                 k = nxt[0]
                 nxt[0] += 1

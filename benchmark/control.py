@@ -1,9 +1,9 @@
-"""The control of a cell's comparison: the plain reference put in the
-program's place and computed in the precision next below the one the
-configuration states (``control_precision`` in the configuration file),
-compared by the run's own numbers against the reference in float32. It has
-to come out as not correct: the limits lie between what the program reads
-and what this reads.
+"""The control of a cell's comparison: the plain reference that the
+configuration names, put in the program's place and computed in the
+precision next below the one the configuration states
+(``control_precision`` in the configuration file), compared by the run's
+own numbers against the reference in float32. It has to come out as not
+correct: the limits lie between what the program reads and what this reads.
 
     python3 benchmark/control.py --workload <name> --seeds <n> [<n> ...]
 
@@ -29,18 +29,19 @@ def train_control(cell, seed: int, root: Path, device: str) -> dict:
 
     from benchmark import core, inputs
     from benchmark.drivers.train import compare_steps
-    from benchmark.reference import adm, flow
+    from benchmark.reference import flow
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     tree = inputs.tile_tree(cell.config["train"]["data"], core.cache_dir(root))
-    net = adm.build(cell.config["net"], device=device)
+    ref = cell.reference
+    net = ref.build(cell.config["net"], device=device)
     names_shapes = [(k, tuple(p.shape)) for k, p in net.named_parameters()]
     train = cell.config["train"]
     recipe, steps, rows = train["recipe"], int(cell.traffic["warm_steps"]), int(train["reference_rows"])
     runs = {}
     for precision in ("float32", cell.config["control_precision"]["train"]):
-        weights = inputs.make_weights(names_shapes, seed, device)
+        weights = inputs.make_weights(names_shapes, seed, device, ref.zeroed)
         runs[precision] = flow.train_steps(net, weights, tree, recipe, seed, steps, device, precision=precision,
                                            rows_per_block=rows)
     record = core.Record(cell=cell, seed=seed, traced=False)
@@ -55,7 +56,7 @@ def serve_control(cell, seed: int, root: Path, device: str) -> dict:
 
     from benchmark import core, inputs
     from benchmark.drivers.serve import compare_pixels, pixel_gaps
-    from benchmark.reference import adm, flow
+    from benchmark.reference import flow
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -66,8 +67,10 @@ def serve_control(cell, seed: int, root: Path, device: str) -> dict:
     order = inputs.region_schedule(traffic, seed, 1)
     largest = max(range(len(sizes)), key=lambda i: sizes[i][0] * sizes[i][1])
     sample = [largest] + [i for i in order if i != largest][: int(traffic["check_sample"]) - 1]
-    net = adm.build(cell.config["net"], device=device)
-    net.load_state_dict(inputs.make_weights([(k, tuple(p.shape)) for k, p in net.named_parameters()], seed, device))
+    ref = cell.reference
+    net = ref.build(cell.config["net"], device=device)
+    names_shapes = [(k, tuple(p.shape)) for k, p in net.named_parameters()]
+    net.load_state_dict(inputs.make_weights(names_shapes, seed, device, ref.zeroed))
     low = cell.config["control_precision"]["serve"]
     gaps = [pixel_gaps(flow.translate(net, images[i], serve, device, precision=low),
                        flow.translate(net, images[i], serve, device)) for i in sample]

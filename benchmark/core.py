@@ -3,15 +3,17 @@ directories, the run's record, the correctness verdict and the result line.
 
 A cell (``workloads`` in ``BENCHMARK.json``) names a configuration and a
 traffic mix. The configuration is ``configs/<name>.json`` (its file is
-named in the manifest), the traffic ``traffic/<name>.json``; the traffic's
-``kind`` names the driver in ``drivers/`` that runs it. Each per-layer
-metric is read by ``metrics/<metric name>.py`` in the cells its
-``workloads`` lists. A new configuration, mix or
-metric is a new file and a new manifest entry.
+named in the manifest), and it names its plain reference net, a file of its
+own (``reference``); the traffic is ``traffic/<name>.json``, whose ``kind``
+names the driver in ``drivers/`` that runs it. Each per-layer metric is read
+by ``metrics/<metric name>.py`` in the cells its ``workloads`` lists. A new
+configuration, architecture, mix or metric is a new file and a new manifest
+entry.
 """
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import json
 import re
@@ -82,12 +84,51 @@ class Cell:
         layers = [m for m in manifest["per_layer"] if name in m["workloads"]]
         return cls(name, config, traffic, int(work["chips"]), ends, layers, root)
 
+    @property
+    def reference(self):
+        """The module of the plain reference net that the configuration names."""
+        return reference(self.root, self.config["reference"])
+
 
 def driver(kind: str):
     """The module of ``drivers/<kind>.py``."""
     if not NAME.match(kind):
         raise ValueError(f"bad traffic kind {kind!r}")
     return importlib.import_module(f"benchmark.drivers.{kind}")
+
+
+def _no_fused_convs(net_cfg: dict, size: int) -> list:
+    return []
+
+
+def _nothing_zeroed(name: str) -> bool:
+    return False
+
+
+def reference(root: Path, path: str):
+    """The plain reference module at ``path`` under ``root`` (a configuration's
+    ``reference``), loaded once a file. It has ``build(net_cfg, device)``,
+    whose net has ``forward(t, x, ctx=None)`` and ``dropout_layers``, and
+    ``attention_shapes(net_cfg, size)``; ``fused_convs(net_cfg, size)`` and
+    ``zeroed(name)`` where it leaves them out list no convolution and zero
+    nothing (``benchmark/README.md``)."""
+    if Path(path).is_absolute() or ".." in Path(path).parts:
+        raise ValueError(f"a reference lies inside the checkout: {path!r}")
+    file = (root / path).resolve()
+    name = f"benchmark_reference_{file.stem}_{hashlib.sha1(str(file).encode()).hexdigest()[:10]}"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, file)
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        try:
+            spec.loader.exec_module(module)
+        except BaseException:
+            del sys.modules[name]
+            raise
+        for key, default in (("fused_convs", _no_fused_convs), ("zeroed", _nothing_zeroed)):
+            if not hasattr(module, key):
+                setattr(module, key, default)
+    return sys.modules[name]
 
 
 def metric_reader(root: Path, name: str) -> Callable[["Record"], Optional[float]]:

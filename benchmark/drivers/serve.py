@@ -9,11 +9,13 @@ process): ``clients`` of them each post a region and wait for the reply,
 for ``--seconds``; the requests still in flight at its end are waited for.
 A forward hook of the benchmark on the net counts the tile rows it is
 given. With ``--trace 1`` the profiler covers ``trace_seconds`` of the
-window, from ``trace_after_s`` on.
+window from ``trace_after_s`` on, and on until at least 10 traced requests
+have ended, the count the span readers need; the clients keep posting until
+it stops, past ``--seconds`` only where the host is too slow for that count.
 
 After the window the server stops, the program's state is freed and the
-plain reference translates a sample of the answered regions drawn from the
-seed, the largest among them.
+plain reference that the configuration names translates a sample of the
+answered regions drawn from the seed, the largest among them.
 """
 
 from __future__ import annotations
@@ -28,8 +30,11 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from .. import clients, inputs, trace, work
+from .. import clients, inputs, spans, trace, work
 from ..core import Check, Record
+
+TRACE_LEAST_REQUESTS = 10  # traced requests the span readers need (lock_wait_ms.serve reads from 10)
+TRACE_MOST_S = 120.0  # the longest the trace waits for them past trace_seconds
 
 
 def run(record: Record, root: Path, device: str, seconds: float, t_start: float,
@@ -42,16 +47,16 @@ def run(record: Record, root: Path, device: str, seconds: float, t_start: float,
     from stain2stain_tpu_torch.server import TranslationServer, serve_forever
     from stain2stain_tpu_torch.utils.utils import instantiate_task
 
-    from ..reference import adm, flow
+    from ..reference import flow
 
     cell, seed = record.cell, record.seed
-    traffic, serve, net_cfg = cell.traffic, cell.config["serve"], cell.config["net"]
+    traffic, serve, net_cfg, ref = cell.traffic, cell.config["serve"], cell.config["net"], cell.reference
     cfg = compose(root / "configs", "infer.yaml", list(serve["overrides"]))
     task = instantiate_task(cfg["model"], device=device)
     names_shapes = [(k, tuple(p.shape)) for k, p in task.net.named_parameters()]
-    if sorted(names_shapes) != sorted((k, tuple(p.shape)) for k, p in adm.build(net_cfg, "meta").named_parameters()):
+    if sorted(names_shapes) != sorted((k, tuple(p.shape)) for k, p in ref.build(net_cfg, "meta").named_parameters()):
         raise ValueError("the program's net and the reference's have different parameters")
-    weights = inputs.make_weights(names_shapes, seed, device)
+    weights = inputs.make_weights(names_shapes, seed, device, ref.zeroed)
     with torch.no_grad():
         for k, p in task.net.named_parameters():
             p.copy_(weights[k])
@@ -84,9 +89,9 @@ def run(record: Record, root: Path, device: str, seconds: float, t_start: float,
         resp.read()
 
     ctx = multiprocessing.get_context("spawn")
-    conn, child_conn = ctx.Pipe(duplex=False)
+    conn, child_conn = ctx.Pipe()
     proc = ctx.Process(target=clients.closed_loop, args=(url, bodies, schedule, int(traffic["clients"]), seconds,
-                                                           child_conn))
+                                                           child_conn, record.traced))
     rows[0] = rows[1] = 0
     proc.start()
     child_conn.close()
@@ -102,9 +107,16 @@ def run(record: Record, root: Path, device: str, seconds: float, t_start: float,
             prof.start()
             t0 = time.monotonic()
             time.sleep(float(traffic["trace_seconds"]))
+            end_by = time.monotonic() + TRACE_MOST_S
+            while time.monotonic() < end_by:
+                ended = spans.finished_roots("serve.request")
+                if ended is None or ended >= TRACE_LEAST_REQUESTS:
+                    break
+                time.sleep(0.05)
             sync()
             traced = (prof, time.monotonic() - t0)
             prof.stop()
+            conn.send(("release",))
         if not conn.poll(seconds + 900):
             raise RuntimeError("the clients did not report")
         out = conn.recv()[1]
@@ -147,7 +159,7 @@ def run(record: Record, root: Path, device: str, seconds: float, t_start: float,
         record.memory_peak_bytes = int(torch.cuda.max_memory_reserved())
     if traced is not None:
         record.trace = trace.reduce(*traced)
-    record.work.update(precision=serve["precision"], forward_flops_per_tile=work.forward_flops(net_cfg, tile))
+    record.work.update(precision=serve["precision"], forward_flops_per_tile=work.forward_flops(ref, net_cfg, tile))
 
     # ---- after the window: the program's state goes, the reference translates a sample
     del server, task, thread
@@ -158,8 +170,8 @@ def run(record: Record, root: Path, device: str, seconds: float, t_start: float,
     torch.backends.cuda.matmul.allow_tf32 = False
     answered = [r for r in reqs if r["status"] == 200]
     sample = pick_sample(answered, sizes, int(traffic["check_sample"]), seed)
-    net = adm.build(net_cfg, device=device)
-    net.load_state_dict(inputs.make_weights(names_shapes, seed, device))
+    net = ref.build(net_cfg, device=device)
+    net.load_state_dict(inputs.make_weights(names_shapes, seed, device, ref.zeroed))
     gaps = [pixel_gaps(inputs.decode_png(r["body"]), flow.translate(net, images[r["region"]], serve, device))
             for r in sample]
     compare_pixels(record, gaps, cell.config["limits"])

@@ -10,7 +10,8 @@ boundary after it, the card synchronized at both ends. With ``--trace 1`` the pr
 covers ``trace_steps`` whole steps of the window.
 
 After the window: the peak memory is read, the program's state freed, and
-the plain reference repeats the warm steps on the same tree and weights.
+the plain reference that the configuration names repeats the warm steps on
+the same tree and weights.
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ from ..core import Check, Record, cache_dir, moving_leaves, norm_gap
 
 
 def compose_recipe(root: Path, cell_config: dict, tree: Path, seed: int, device: str):
+    """The program's composed training config, checked against what the
+    configuration's recipe states; a recipe whose ``dropout`` is null needs a
+    net that states none."""
     from stain2stain_tpu_torch.config import compose
 
     overrides = list(cell_config["train"]["overrides"]) + [
@@ -70,10 +74,10 @@ def run(record: Record, root: Path, device: str, seconds: float, t_start: float,
     from stain2stain_tpu_torch.utils.seed import seed_everything
     from stain2stain_tpu_torch.utils.utils import instantiate_task
 
-    from ..reference import adm, flow
+    from ..reference import flow
 
     cell, seed = record.cell, record.seed
-    traffic, recipe, net_cfg = cell.traffic, cell.config["train"]["recipe"], cell.config["net"]
+    traffic, recipe, net_cfg, ref = cell.traffic, cell.config["train"]["recipe"], cell.config["net"], cell.reference
     warm, trace_steps = int(traffic["warm_steps"]), int(traffic["trace_steps"])
     tree = inputs.tile_tree(cell.config["train"]["data"], cache_dir(root))
     cfg = compose_recipe(root, cell.config, tree, seed, device)
@@ -142,10 +146,10 @@ def run(record: Record, root: Path, device: str, seconds: float, t_start: float,
     trainer = instantiate(cfg["trainer"], callbacks=[clock], logger=None)
     task = instantiate_task(cfg["model"], device=trainer.device)
     names_shapes = [(k, tuple(p.shape)) for k, p in task.net.named_parameters()]
-    reference_names = [(k, tuple(p.shape)) for k, p in adm.build(net_cfg, device="meta").named_parameters()]
+    reference_names = [(k, tuple(p.shape)) for k, p in ref.build(net_cfg, device="meta").named_parameters()]
     if sorted(names_shapes) != sorted(reference_names):
         raise ValueError("the program's net and the reference's have different parameters")
-    weights = inputs.make_weights(names_shapes, seed, trainer.device)
+    weights = inputs.make_weights(names_shapes, seed, trainer.device, ref.zeroed)
     with torch.no_grad():
         for k, p in task.net.named_parameters():
             p.copy_(weights[k])
@@ -181,8 +185,8 @@ def run(record: Record, root: Path, device: str, seconds: float, t_start: float,
     size = int(recipe["image_size"])
     cdtype = "bfloat16" if str(recipe["precision"]).startswith("bf16") else "float32"
     record.work.update(
-        precision=cdtype, forward_flops_per_tile=work.forward_flops(net_cfg, size),
-        attention=work.attention_layers(net_cfg, size), resblock_convs=work.resblock_convs(net_cfg, size),
+        precision=cdtype, forward_flops_per_tile=work.forward_flops(ref, net_cfg, size),
+        attention=ref.attention_shapes(net_cfg, size), resblock_convs=ref.fused_convs(net_cfg, size),
         fused_conv=bool(cell.config["train"].get("fused_conv", False)),
     )
 
@@ -194,11 +198,11 @@ def run(record: Record, root: Path, device: str, seconds: float, t_start: float,
         torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    net = adm.build(net_cfg, device=device)
-    weights = inputs.make_weights(names_shapes, seed, device)
-    ref = flow.train_steps(net, weights, tree, recipe, seed, warm, device,
-                           rows_per_block=int(cell.config["train"]["reference_rows"]))
-    compare_steps(record, {"losses": losses, "grad1": grad1, "change": change}, ref, cell.config["limits"])
+    net = ref.build(net_cfg, device=device)
+    weights = inputs.make_weights(names_shapes, seed, device, ref.zeroed)
+    followed = flow.train_steps(net, weights, tree, recipe, seed, warm, device,
+                                rows_per_block=int(cell.config["train"]["reference_rows"]))
+    compare_steps(record, {"losses": losses, "grad1": grad1, "change": change}, followed, cell.config["limits"])
 
 
 def compare_steps(record: Record, program: dict, ref: dict, limits: dict) -> None:

@@ -1,7 +1,8 @@
 """The inputs of every run, made by the benchmark from ``--seed``: the net's
-weights, the paired tile tree the training recipe reads, and the regions a
-serving run posts. The program under test gets only these; the plain
-reference gets the same.
+weights (by the names and shapes of the configuration's reference net), the
+paired tile tree the training recipe reads, and the regions a serving run
+posts. The program under test gets only these; the plain reference gets the
+same.
 """
 
 from __future__ import annotations
@@ -9,19 +10,22 @@ from __future__ import annotations
 import csv
 import io
 from pathlib import Path
+from typing import Callable, Optional
 
 import numpy as np
 
 
-def make_weights(names_shapes: list, seed: int, device, jitter: float = 0.02) -> dict:
-    """{name: f32 tensor} for an ADM UNet's parameters, drawn on ``device`` in
-    one call from a generator seeded with ``seed``.
+def make_weights(names_shapes: list, seed: int, device, zeroed: Optional[Callable[[str], bool]] = None,
+                 jitter: float = 0.02) -> dict:
+    """{name: f32 tensor} for a net's parameters, drawn on ``device`` in one
+    call from a generator seeded with ``seed``.
 
     Each conv and dense kernel is normal with variance 1/fan_in, as the
-    recipe initializes it; the kernels the recipe zeroes (each ResBlock's
-    last conv, each attention output and the output conv) and every bias are
-    normal with deviation ``jitter``, and each GroupNorm scale is 1 plus that.
-    So the velocity is not zero, and every parameter has a gradient."""
+    recipes initialize them; the kernels the recipe zeroes (those for which
+    ``zeroed(name)``, the reference module's, is true; by default none) and
+    every bias are normal with deviation ``jitter``, and each norm scale (a
+    one-dimensional ``weight``) is 1 plus that. So the velocity is not zero,
+    and every parameter has a gradient."""
     import torch
 
     total = sum(int(np.prod(shape)) for _, shape in names_shapes)
@@ -32,8 +36,7 @@ def make_weights(names_shapes: list, seed: int, device, jitter: float = 0.02) ->
         n = int(np.prod(shape))
         z = flat[at:at + n].view(shape)
         at += n
-        zeroed = name.startswith("out.2.") or ".out_layers.3." in name or ".proj_out." in name
-        if len(shape) >= 2 and not zeroed:
+        if len(shape) >= 2 and not (zeroed is not None and zeroed(name)):
             out[name] = z * (n // shape[0]) ** -0.5
         elif len(shape) == 1 and name.endswith(".weight"):
             out[name] = 1.0 + jitter * z

@@ -1,15 +1,15 @@
-"""The plain reference of the velocity net: an ADM UNet in plain PyTorch.
+"""The plain reference of the ADM UNet velocity net, in plain PyTorch.
 
 The published guided-diffusion architecture (Dhariwal & Nichol 2021,
 https://arxiv.org/abs/2105.05233) as torchcfm packages it: its state-dict
 keys, its legacy qkv row order (``[h0·(q,k,v), h1·(q,k,v), …]``), GroupNorm
 with eps 1e-5, FiLM conditioning (``use_scale_shift_norm``). Written from
 the published design, not from the measured program, and importing none of
-it. Two additions the measured recipes need:
+it. Two additions the measured recipes need, both from
+:mod:`benchmark.reference.common`:
 
-- dropout in each ResBlock as a counter hash of the NCHW element index
-  (murmur3's finalizer of ``((b·H + h)·W + w)·C + c + seed``, kept where it
-  lies below ``(1 - rate)·2^32``), so a train step can be followed exactly
+- dropout in each ResBlock as the program's counter hash of the NCHW
+  element index (``dropout_keep``), so a train step can be followed exactly
   from the seeds the step draws; ``batch_offset`` gives a block of rows its
   place in the whole batch;
 - ``cast``: a rounding of the operands of every convolution, dense layer
@@ -19,63 +19,22 @@ it. Two additions the measured recipes need:
 
 Inputs and outputs are NCHW f32. Everything runs in float32; on the card the
 caller turns TF32 off.
+
+The module meets the interface of a configuration's ``reference``
+(``benchmark/README.md``): :func:`build`, the net's ``dropout_layers``,
+:func:`attention_shapes`, :func:`fused_convs` and :func:`zeroed`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-class _RoundGrad(torch.autograd.Function):
-    """The identity forward; the backward rounds the gradient with ``fn``."""
-
-    @staticmethod
-    def forward(ctx, x, fn):
-        ctx.fn = fn
-        return x
-
-    @staticmethod
-    def backward(ctx, g):
-        return ctx.fn(g), None
-
-
-class Cast:
-    """A precision for every product of the net: ``inp`` rounds a product's
-    inputs (its gradient passes unrounded, straight through), ``out`` rounds
-    the gradient that reaches a product's output, so the backward's products
-    take rounded operands too. Sums stay float32."""
-
-    def __init__(self, fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
-        self.fn = fn
-
-    def inp(self, x: torch.Tensor) -> torch.Tensor:
-        return x if self.fn is None else x + (self.fn(x) - x).detach()
-
-    def out(self, y: torch.Tensor) -> torch.Tensor:
-        return y if self.fn is None or not y.requires_grad else _RoundGrad.apply(y, self.fn)
-
-
-def _bf16(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.bfloat16).to(x.dtype)
-
-
-def _fp8(x: torch.Tensor) -> torch.Tensor:
-    """e4m3 with one scale a tensor, its largest magnitude at 448, as float8 training scales."""
-    scale = 448.0 / x.detach().abs().amax().clamp_min(1e-30)
-    return (x * scale).to(torch.float8_e4m3fn).to(x.dtype) / scale
-
-
-def rounding(precision: str) -> Cast:
-    """The :class:`Cast` of ``float32`` (none), ``bfloat16`` or ``float8``
-    (e4m3, scaled a tensor at a time)."""
-    fns = {"float32": None, "bfloat16": _bf16, "float8": _fp8}
-    if precision not in fns:
-        raise ValueError(f"unknown precision {precision!r}")
-    return Cast(fns[precision])
+from benchmark.reference.common import Ctx, conv, dropout_keep, timestep_embedding
 
 
 def gn_groups(channels: int) -> int:
@@ -83,60 +42,6 @@ def gn_groups(channels: int) -> int:
     while channels % groups:
         groups -= 1
     return groups
-
-
-def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
-    half = dim // 2
-    freqs = torch.exp(-math.log(max_period) * torch.arange(half, dtype=torch.float32, device=t.device) / half)
-    args = t.float()[:, None] * freqs[None]
-    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
-    if dim % 2:
-        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
-    return emb
-
-
-def _wrap32(v: torch.Tensor) -> torch.Tensor:
-    """int64 values mod 2^32 as int32 tensors with the same bits."""
-    v = v & 0xFFFFFFFF
-    return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
-
-
-def _i32(value: int) -> int:
-    value &= 0xFFFFFFFF
-    return value - (1 << 32) if value >= 1 << 31 else value
-
-
-def dropout_keep(seed: int, shape, rate: float, batch_offset: int, device) -> torch.Tensor:
-    """The keep mask (bool) of an NCHW ``shape`` whose first row is row ``batch_offset`` of the batch."""
-    b, c, h, w = shape
-    bc = (torch.arange(b, dtype=torch.int64).reshape(b, 1, 1, 1) + batch_offset) * (h * w * c) + torch.arange(
-        c, dtype=torch.int64).reshape(1, c, 1, 1)
-    hw = (torch.arange(h, dtype=torch.int64).reshape(1, 1, h, 1) * w
-          + torch.arange(w, dtype=torch.int64).reshape(1, 1, 1, w)) * c
-    x = _wrap32(bc + seed).to(device) + _wrap32(hw).to(device)
-    x ^= (x >> 16) & 0xFFFF
-    x *= _i32(0x85EBCA6B)
-    x ^= (x >> 13) & 0x7FFFF
-    x *= _i32(0xC2B2AE35)
-    x ^= (x >> 16) & 0xFFFF
-    threshold = min(2**32 - 1, round((1.0 - rate) * 2**32))
-    return (x ^ torch.iinfo(torch.int32).min) < threshold - 2**31
-
-
-class Ctx:
-    """What one forward needs besides its inputs: the rounding, the dropout
-    rate, this block of rows' offset and the seed of each ResBlock (None: eval)."""
-
-    def __init__(self, cast: Optional[Cast] = None, rate: float = 0.0, seeds: Optional[list] = None,
-                 batch_offset: int = 0):
-        self.cast, self.rate, self.seeds, self.batch_offset = cast or Cast(), rate, seeds, batch_offset
-
-
-def conv(m: nn.Module, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
-    c = ctx.cast
-    if isinstance(m, nn.Linear):
-        return c.out(F.linear(c.inp(x), c.inp(m.weight), m.bias))
-    return c.out(F.conv2d(c.inp(x), c.inp(m.weight), m.bias, stride=m.stride, padding=m.padding))
 
 
 class ResBlock(nn.Module):
@@ -245,8 +150,8 @@ class ADMUNet(nn.Module):
                 self.output_blocks.append(nn.ModuleList(mods))
         self.out = nn.Sequential(nn.GroupNorm(gn_groups(ch), ch), nn.SiLU(),
                                  nn.Conv2d(ch, out_channels or in_channels, 3, padding=1))
-        self.resblocks = [m for m in self.modules() if isinstance(m, ResBlock)]
-        for i, block in enumerate(self.resblocks):
+        self.dropout_layers = [m for m in self.modules() if isinstance(m, ResBlock)]
+        for i, block in enumerate(self.dropout_layers):
             block.slot = i
 
     def forward(self, t: torch.Tensor, x: torch.Tensor, ctx: Optional[Ctx] = None) -> torch.Tensor:
@@ -292,3 +197,61 @@ def build(net_cfg: dict, device=None) -> ADMUNet:
             attention_levels=attention_levels(net_cfg["attention_resolutions"], image_size),
             num_head_channels=int(net_cfg["num_head_channels"]), out_channels=net_cfg.get("out_channels"),
         )
+
+
+def attention_shapes(net_cfg: dict, size: int) -> list[tuple[int, int, int]]:
+    """(heads, T, d) of every attention layer of one forward on one tile of
+    ``size`` × ``size`` pixels (which levels attend follows the net's
+    configured image size, as the net reads its configuration)."""
+    levels = attention_levels(net_cfg["attention_resolutions"], int(net_cfg["dim"][-1]))
+    mult, mc, per_head = list(net_cfg["channel_mult"]), int(net_cfg["num_channels"]), int(net_cfg["num_head_channels"])
+    out, ds = [], 1
+    for level, m in enumerate(mult):
+        ch = m * mc
+        if ds in levels:
+            t = (size // ds) ** 2
+            down = int(net_cfg["num_res_blocks"])
+            up = int(net_cfg["num_res_blocks"]) + 1
+            out += [(max(ch // per_head, 1), t, per_head if ch >= per_head else ch)] * (down + up)
+        if level != len(mult) - 1:
+            ds *= 2
+    ch = mult[-1] * mc
+    out.append((max(ch // per_head, 1), (size // ds) ** 2, per_head if ch >= per_head else ch))
+    return out
+
+
+def fused_convs(net_cfg: dict, size: int) -> list[tuple[int, int, int]]:
+    """(side, C, D) of the two 3×3 convolutions of every ResBlock of one
+    forward on a tile of ``size`` px, in forward order: the input conv C → D,
+    the output conv D → D (the convolutions the program's fused path runs
+    through K2-K5)."""
+    mc, nrb = int(net_cfg["num_channels"]), int(net_cfg["num_res_blocks"])
+    mult = list(net_cfg["channel_mult"])
+    convs, skips, ch, side = [], [mc], mc, size
+
+    def block(c, d, s):
+        convs.extend([(s, c, d), (s, d, d)])
+
+    for level, m in enumerate(mult):
+        for _ in range(nrb):
+            block(ch, m * mc, side)
+            ch = m * mc
+            skips.append(ch)
+        if level != len(mult) - 1:
+            skips.append(ch)
+            side //= 2
+    block(ch, ch, side)
+    block(ch, ch, side)
+    for level, m in reversed(list(enumerate(mult))):
+        for i in range(nrb + 1):
+            block(ch + skips.pop(), m * mc, side)
+            ch = m * mc
+        if level != 0:
+            side *= 2
+    return convs
+
+
+def zeroed(name: str) -> bool:
+    """Whether the recipe initializes parameter ``name`` at zero: each
+    ResBlock's last conv, each attention output and the output conv."""
+    return name.startswith("out.2.") or ".out_layers.3." in name or ".proj_out." in name

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..inputs import decode_png, read_split
-from .adm import Ctx, rounding
+from .common import Ctx, rounding
 
 _TRAIN_STREAM = 0
 
@@ -65,7 +65,8 @@ def load_batch(root: Path, pairs: list, idx: np.ndarray) -> tuple:
 def train_steps(net, weights: dict, tree: Path, recipe: dict, seed: int, steps: int, device,
                 precision: str = "float32", rows_per_block: int = 8) -> dict:
     """``steps`` optimizer steps of ``recipe`` from ``weights`` on ``net``
-    (an :class:`~.adm.ADMUNet` on ``device``), in ``precision``.
+    (the configuration's reference net on ``device``), in ``precision``. A
+    recipe whose ``dropout`` is null trains at rate 0 and draws no seeds.
 
     Returns the loss of each step, the first step's gradient as Adam gets it
     and the parameters' change over all of them, each leaf's norm by name."""
@@ -77,7 +78,7 @@ def train_steps(net, weights: dict, tree: Path, recipe: dict, seed: int, steps: 
     m = {k: torch.zeros_like(p) for k, p in params.items()}
     v = {k: torch.zeros_like(p) for k, p in params.items()}
     pairs = read_split(tree, "train")
-    batch, crop, rate = int(recipe["batch_size"]), int(recipe["image_size"]), float(recipe["dropout"])
+    batch, crop, rate = int(recipe["batch_size"]), int(recipe["image_size"]), float(recipe["dropout"] or 0.0)
     order = epoch_order(len(pairs), seed, 0)
     cast = rounding(precision)
     losses, grad1 = [], None
@@ -91,7 +92,8 @@ def train_steps(net, weights: dict, tree: Path, recipe: dict, seed: int, steps: 
             rows, cols = crop_flip(torch.from_numpy(fields[0]), crop, g)
         zero_mask = toggle > 0 and bool(torch.rand((), generator=g) < toggle)
         t = torch.rand((batch,), generator=g)
-        seeds = [int(torch.randint(0, 2**32, (1,), dtype=torch.int64, generator=g)) for _ in net.resblocks]
+        seeds = [int(torch.randint(0, 2**32, (1,), dtype=torch.int64, generator=g))
+                 for _ in (net.dropout_layers if recipe["dropout"] is not None else ())]
         b_idx = torch.arange(batch)[:, None, None]
 
         def prep(u8):

@@ -2,7 +2,9 @@
 the roots that began while the run's profiler recorded
 (``stain2stain_tpu_torch.utils.tracing.spans()``), read in the process that
 ran them. A program that records no spans, an untraced run or too few
-traced roots give None, the last two with a note saying why."""
+traced roots give None, the last two with a note saying why. The serve
+driver counts the traced roots that have ended (:func:`finished_roots`) to
+keep its trace on until the readers have enough."""
 
 from __future__ import annotations
 
@@ -23,6 +25,16 @@ def trees(record, metric: str, root: str, least: int = 1):
         record.note(f"{metric} left out: {len(roots)} traced {root} roots, fewer than {least}")
         return None
     return [s for s in found if s.root in roots]
+
+
+def finished_roots(root: str):
+    """How many roots named ``root`` that began in the latest profiling
+    session have ended so far, or None where the program records no spans."""
+    try:
+        from stain2stain_tpu_torch.utils import tracing
+    except ImportError:
+        return None
+    return sum(1 for s in tracing.spans() if s.parent is None and s.name == root)
 
 
 def named(spans: list, name: str) -> list:

@@ -24,7 +24,7 @@ def test_net_matches_the_program():
     ref = adm.build(net_cfg)
     names = [(k, tuple(p.shape)) for k, p in program.named_parameters()]
     assert sorted(names) == sorted((k, tuple(p.shape)) for k, p in ref.named_parameters())
-    weights = inputs.make_weights(names, 2**31 + 5, "cpu")
+    weights = inputs.make_weights(names, 2**31 + 5, "cpu", adm.zeroed)
     program.load_state_dict(weights, strict=False)
     ref.load_state_dict(weights)
     x = torch.randn(3, 32, 32, 3, generator=torch.Generator().manual_seed(0))
@@ -72,3 +72,19 @@ def test_traced_run_reports_the_cells_own_per_layer_metrics(workload):
     assert [n for n in line["metrics"] if n.startswith("mfu.")] == [
         m["name"] for m in cell.per_layer if m["name"].startswith("mfu.")]
     assert line["correct"] is True
+
+
+def test_traced_serve_window_waits_for_the_readers_count():
+    # a traced stretch and a window far too short for ten requests: the trace
+    # runs on, and the clients with it, until ten traced requests have ended
+    from benchmark.core import metric_reader
+    from benchmark.spans import trees
+
+    cell = tiny.cell("serve.cfm-unet-256")
+    cell.traffic.update(trace_after_s=0.05, trace_seconds=0.05)
+    record = core.Record(cell=cell, seed=2**31 + 79, traced=True)
+    core.driver(cell.traffic["kind"]).run(record, tiny.ROOT, "cpu", 0.2, time.monotonic())
+    assert len({s.root for s in trees(record, "test", "serve.request")}) >= 10
+    assert metric_reader(tiny.ROOT, "lock_wait_ms.serve")(record) is not None
+    assert record.trace.window_s > 0.05
+    assert all(c.ok for c in record.checks), record.checks

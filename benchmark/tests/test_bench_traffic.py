@@ -8,7 +8,7 @@ from collections import Counter
 import numpy as np
 
 from benchmark import inputs
-from benchmark.reference import flow
+from benchmark.reference import adm, flow
 from benchmark.tests.tiny import traffic_file
 
 SERVE = traffic_file("serve-regions-c4")
@@ -49,7 +49,7 @@ def test_region_pixels_follow_the_seed():
 
 def test_weights_follow_the_seed():
     shapes = [("a.weight", (4, 3, 3, 3)), ("a.bias", (4,)), ("n.weight", (4,)), ("out.2.weight", (3, 4, 3, 3))]
-    w1, w2, w3 = (inputs.make_weights(shapes, s, "cpu") for s in (BIG, BIG, BIG + 1))
+    w1, w2, w3 = (inputs.make_weights(shapes, s, "cpu", adm.zeroed) for s in (BIG, BIG, BIG + 1))
     assert all((w1[k] == w2[k]).all() for k in w1)
     assert any((w1[k] != w3[k]).any() for k in w1)
     assert abs(float(w1["n.weight"].mean()) - 1.0) < 0.1
@@ -66,3 +66,10 @@ def test_tile_tree_is_written_once_and_reread(tmp_path):
     he = inputs.decode_png(root / "train" / inputs.read_split(root, "train")[0][0])
     assert he.shape == (16, 16, 3)
     assert Counter(len(inputs.read_split(root, s)) for s in ("val", "test")) == Counter({1: 2})
+
+
+def test_weights_zero_nothing_by_default():
+    shapes = [("out.2.weight", (16, 2, 3, 3)), ("blocks.0.proj_out.weight", (64, 4))]
+    plain, adm_init = inputs.make_weights(shapes, BIG, "cpu"), inputs.make_weights(shapes, BIG, "cpu", adm.zeroed)
+    for k, _ in shapes:
+        assert float(plain[k].std()) > 0.1 > float(adm_init[k].std())

@@ -2,9 +2,11 @@
 counted from the configuration's shapes, never from what a kernel launches.
 
 - FLOPs: two per multiply-add of every convolution, dense layer and
-  attention product of the plain reference net (``torch.utils.flop_counter``
-  over it on the ``meta`` device, so no memory and no arithmetic). Attention
-  is 4·BH·T²·d forward and 10·BH·T²·d backward (the five products).
+  attention product of the plain reference net that the configuration
+  names (``torch.utils.flop_counter`` over it on the ``meta`` device, so no
+  memory and no arithmetic). Attention is 4·BH·T²·d forward and
+  10·BH·T²·d backward (the five products), over the (heads, T, d) of each
+  attention layer that the reference module lists.
 - Bytes: each input read once, each output written once.
 - Peaks (one H100 SXM, NVIDIA's data sheet, dense): 989e12 FLOP/s for
   bfloat16 work, 495e12 for float32 work (the TF32 tensor-core rate: no
@@ -12,8 +14,6 @@ counted from the configuration's shapes, never from what a kernel launches.
 """
 
 from __future__ import annotations
-
-from functools import lru_cache
 
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12}
 PEAK_BYTES_PER_S = 3.35e12
@@ -25,50 +25,26 @@ def least_s(flops: float, bytes_: float, precision: str) -> float:
     return max(flops / PEAK_FLOPS[precision], bytes_ / PEAK_BYTES_PER_S)
 
 
-@lru_cache(maxsize=None)
-def _forward_flops(key: str, size: int) -> int:
+_FORWARD_FLOPS: dict = {}
+
+
+def forward_flops(ref, net_cfg: dict, size: int) -> int:
+    """FLOPs of one forward of the reference net of module ``ref`` (a
+    configuration's ``reference``) on one tile of ``size`` × ``size`` pixels
+    with ``net_cfg["dim"][0]`` channels: ``FlopCounterMode`` over it on the
+    ``meta`` device."""
     import json
 
-    import torch
-    from torch.utils.flop_counter import FlopCounterMode
+    key = (ref.__name__, json.dumps(net_cfg, sort_keys=True), int(size))
+    if key not in _FORWARD_FLOPS:
+        import torch
+        from torch.utils.flop_counter import FlopCounterMode
 
-    from .reference.adm import build
-
-    net_cfg = json.loads(key)
-    net = build(net_cfg, device="meta")
-    with torch.device("meta"), FlopCounterMode(display=False) as counter:
-        net(torch.zeros(1), torch.zeros(1, int(net_cfg["dim"][0]), size, size))
-    return int(counter.get_total_flops())
-
-
-def forward_flops(net_cfg: dict, size: int) -> int:
-    """FLOPs of one forward of the net on one tile of ``size`` × ``size`` pixels."""
-    import json
-
-    return _forward_flops(json.dumps(net_cfg, sort_keys=True), int(size))
-
-
-def attention_layers(net_cfg: dict, size: int) -> list[tuple[int, int, int]]:
-    """(heads, T, d) of every attention layer of one forward on one tile of
-    ``size`` × ``size`` pixels (which levels attend follows the net's
-    configured image size, as the net reads its configuration)."""
-    from .reference.adm import attention_levels
-
-    levels = attention_levels(net_cfg["attention_resolutions"], int(net_cfg["dim"][-1]))
-    mult, mc, per_head = list(net_cfg["channel_mult"]), int(net_cfg["num_channels"]), int(net_cfg["num_head_channels"])
-    out, ds = [], 1
-    for level, m in enumerate(mult):
-        ch = m * mc
-        if ds in levels:
-            t = (size // ds) ** 2
-            down = int(net_cfg["num_res_blocks"])
-            up = int(net_cfg["num_res_blocks"]) + 1
-            out += [(max(ch // per_head, 1), t, per_head if ch >= per_head else ch)] * (down + up)
-        if level != len(mult) - 1:
-            ds *= 2
-    ch = mult[-1] * mc
-    out.append((max(ch // per_head, 1), (size // ds) ** 2, per_head if ch >= per_head else ch))
-    return out
+        net = ref.build(net_cfg, device="meta")
+        with torch.device("meta"), FlopCounterMode(display=False) as counter:
+            net(torch.zeros(1), torch.zeros(1, int(net_cfg["dim"][0]), size, size))
+        _FORWARD_FLOPS[key] = int(counter.get_total_flops())
+    return _FORWARD_FLOPS[key]
 
 
 def attention_work(bh: int, t: int, d: int, precision: str, backward: bool) -> tuple[float, float]:
@@ -79,36 +55,6 @@ def attention_work(bh: int, t: int, d: int, precision: str, backward: bool) -> t
     if backward:
         return 10.0 * bh * t * t * d, 8.0 * bh * t * d * e + 4.0 * bh * t
     return 4.0 * bh * t * t * d, 4.0 * bh * t * d * e + 4.0 * bh * t
-
-
-def resblock_convs(net_cfg: dict, size: int) -> list[tuple[int, int, int]]:
-    """(side, C, D) of the two 3×3 convolutions of every ResBlock of one
-    forward on a tile of ``size`` px, in forward order: the input conv C → D,
-    the output conv D → D."""
-    mc, nrb = int(net_cfg["num_channels"]), int(net_cfg["num_res_blocks"])
-    mult = list(net_cfg["channel_mult"])
-    convs, skips, ch, side = [], [mc], mc, size
-
-    def block(c, d, s):
-        convs.extend([(s, c, d), (s, d, d)])
-
-    for level, m in enumerate(mult):
-        for _ in range(nrb):
-            block(ch, m * mc, side)
-            ch = m * mc
-            skips.append(ch)
-        if level != len(mult) - 1:
-            skips.append(ch)
-            side //= 2
-    block(ch, ch, side)
-    block(ch, ch, side)
-    for level, m in reversed(list(enumerate(mult))):
-        for i in range(nrb + 1):
-            block(ch + skips.pop(), m * mc, side)
-            ch = m * mc
-        if level != 0:
-            side *= 2
-    return convs
 
 
 def fused_conv_work(side: int, c: int, d: int, batch: int) -> dict:
