@@ -18,8 +18,9 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    at 512 px, with the lse that training saves), ``generate_all_classes``'
    shape (BH 768, f32), the 512-px mask paths' shape (128, 4096, 32, f32,
    with the lse), a rank's 512-px shape of phase 28 (48, 4096, 32, f32, with
-   the lse), d 16 and d 64 (both dtypes), T 4096, ragged T,
-   peaked logits (q × 8); times of the kernel
+   the lse), d 16 and d 64 (both dtypes), d 72 (bf16 alone: DiT-XL/2's
+   training shape (512, 1024, 72), a ragged T and peaked logits), T 4096,
+   ragged T, peaked logits (q × 8); times of the kernel
    (per call, ``ms``, and queued device time, ``queued_ms``, see
    :func:`cuda_queued_ms`), the plain version and
    ``scaled_dot_product_attention`` (a yardstick only, never used by the
@@ -28,7 +29,7 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    explicit backward, itself checked against torch autograd through the
    plain forward) at the same kinds of shapes (f32 first at the 512-px f32
    training shape (96, 4096, 32), then a rank's of phase 28 (48, 4096, 32)
-   and the mask paths' (128, 4096, 32)),
+   and the mask paths' (128, 4096, 32); d 72 in bf16 as in phase 3),
    through both routes: the lse from K1-fwd
    given (training's route) and recomputed; each run twice, equal bit for
    bit; times of both routes, the plain version and the backward of
@@ -245,6 +246,13 @@ Phases (any failure ends the script with a non-zero exit and no result line):
     float32 (``phase_dropout_kernel``). Each train phase's
     ``dropout_launches`` must be its net's active dropout layers x (2 x steps
     + the remat recomputes) without fused_conv, and 0 with it.
+37. ``train-dit`` (after phase 8, on its 512-px data): the DiT (``models/dit.py``)
+    through the same entry point under ``bf16-mixed``: DiT-XL/2's widths (hidden
+    1152, 16 heads of 72, MLP 4608, 16-px patches of 512-px tiles: T 1024) with
+    depth cut to 4 blocks, batch 6, 8 steps, validation, checkpoints, test; K1 in
+    bf16 at head dim 72, K1-fwd once per block of each net forward and K1-bwd
+    once per block a step, its own counts zeroed just before the run; K2–K5 and
+    the dropout kernel never.
 
 With ``--profile`` it also profiles a tile batch and a request, and a train
 step of each path (``phase_profile_train``), the binary multitask study's
@@ -480,6 +488,10 @@ def phase_kernels(exp_per_s: float) -> dict:
          "quality-control's training call"),
         (8, 256, 32, "float32", 1.0, False,
          "the quality control's 8 validation and test tiles, f32: quality-control's evaluation call"),
+        (512, 1024, 72, "bfloat16", 1.0, True,
+         "DiT-XL/2 at 512 px (batch 32, 16 heads of 72, T 1024), bf16, lse saved: the DiT training call"),
+        (48, 1000, 72, "bfloat16", 1.0, False, "ragged T, d 72, bf16"),
+        (64, 1024, 72, "bfloat16", 8.0, True, "peaked logits (q x 8), d 72, bf16"),
     ]
     results = []
     for bh, t, d, dtype, peak, with_lse, what in cases:
@@ -569,6 +581,10 @@ def phase_k1_bwd(exp_per_s: float) -> dict:
         (16, 1000, 32, "bfloat16", 1.0, "ragged T, bf16"),
         (16, 256, 32, "float32", 1.0,
          "the quality control's training shape (32 px, batch 16, one 32-wide head at 16 px), f32: quality-control"),
+        (512, 1024, 72, "bfloat16", 1.0,
+         "DiT-XL/2 at 512 px (batch 32, 16 heads of 72, T 1024), bf16: the DiT training path, 28 a step"),
+        (48, 1000, 72, "bfloat16", 1.0, "ragged T, d 72, bf16"),
+        (64, 1024, 72, "bfloat16", 8.0, "peaked logits (q x 8), d 72, bf16"),
     ]
     results = []
     for bh, t, d, dtype, peak, what in cases:
@@ -1092,6 +1108,13 @@ TRAIN_F32_OVERRIDES = [
     "trainer.check_val_every_n_epoch=1",
     "test=true",
 ]
+# the DiT at DiT-XL/2's widths with depth cut to 4 blocks (the K1 shape of each
+# block is the published one: 16 heads of 72 over T 1024), bf16-mixed as
+# quality_synthetic_256 sets, on phase 8's 512-px data: 8 steps of 6
+TRAIN_DIT_OVERRIDES = [o for o in TRAIN_F32_OVERRIDES if o != "trainer.precision=32"] + [
+    "model.net={_target_: stain2stain_tpu_torch.models.dit.DiT, dim: [3, 512, 512], patch_size: 16, "
+    "hidden_size: 1152, depth: 4, num_heads: 16, mlp_ratio: 4.0}",
+]
 # level remat: every ResBlock and the mid block (with its attention) lie in a
 # region, so K1-fwd and each fused block's K2 run again in every backward
 REMAT_OVERRIDE = "+model.net.use_checkpoint=level"
@@ -1148,6 +1171,7 @@ TRAIN_PATHS = {
     "train": (TRAIN_OVERRIDES, "data"),
     "train-fused": (TRAIN_OVERRIDES + [FUSED_OVERRIDE], "data"),
     "train-f32": (TRAIN_F32_OVERRIDES, "data-512"),
+    "train-dit": (TRAIN_DIT_OVERRIDES, "data-512"),
     "train-remat": (TRAIN_F32_OVERRIDES + [REMAT_OVERRIDE], "data-512"),
     "train-fused-remat": (TRAIN_OVERRIDES + [FUSED_OVERRIDE, REMAT_OVERRIDE], "data"),
     "train-any2any": (ANY2ANY_OVERRIDES, "domains"),
@@ -1180,7 +1204,8 @@ def phase_train(card: str, work: Path, name: str = "train", callbacks: Optional[
     ``train-fused`` (the same with ``+model.net.fused_conv=true``: the
     ResBlocks through K2–K5), ``train-f32`` (f32, 512 px, batch 6),
     ``train-remat`` and ``train-fused-remat`` (``train-f32`` and
-    ``train-fused`` with ``use_checkpoint=level``), ``train-any2any`` (the
+    ``train-fused`` with ``use_checkpoint=level``), ``train-dit`` (the DiT,
+    bf16-mixed, 512 px, batch 6, 4 blocks), ``train-any2any`` (the
     any2any experiment, f32, 256 px, batch 32, level remat; its domain
     folders made by the caller), and the mask studies at f32, 512 px, batch
     8 on trees the caller makes: ``train-masked-conditioned`` (the toggled
@@ -1200,6 +1225,7 @@ def phase_train(card: str, work: Path, name: str = "train", callbacks: Optional[
     import torch
 
     from stain2stain_tpu_torch.config import compose
+    from stain2stain_tpu_torch.models.dit import Attention as DiTAttention
     from stain2stain_tpu_torch.models.unet import AttentionBlock
     from stain2stain_tpu_torch.ops.dropout import FastDropout
     from stain2stain_tpu_torch.train import train
@@ -1236,8 +1262,8 @@ def phase_train(card: str, work: Path, name: str = "train", callbacks: Optional[
     peak_reserved_gib = torch.cuda.max_memory_reserved() / 2**30
     steps = len(clock.losses)
     want_steps = PATH_STEPS.get(name, 8)
-    # attention layers a forward: the flagship's mid block, or level 3 and the mid block
-    attention = sum(isinstance(m, AttentionBlock) for m in task.net.modules())
+    # attention layers a forward: the flagship's mid block, or level 3 and the mid block, or each DiT block
+    attention = sum(isinstance(m, (AttentionBlock, DiTAttention)) for m in task.net.modules())
     dropout_layers = sum(isinstance(m, FastDropout) and m.impl == "hash" and 0 < m.rate < 1 for m in task.net.modules())
     durations = [b - a for a, b in zip([clock.t0] + clock.ends[:-1], clock.ends)]
     steady = durations[2:8] if steps >= 8 else durations[1:]  # steps 3-8, or 2-4 on the 4-step paths
@@ -1278,6 +1304,8 @@ def phase_train(card: str, work: Path, name: str = "train", callbacks: Optional[
     if (attention == 0) != (name in MULTITASK_PATHS) or bwd_launches != attention * steps:
         raise AssertionError(f"K1-bwd launches {bwd_launches} != {attention} attention layers x {steps} backward passes "
                              "(the UNet paths have attention layers, the multitask nets none)")
+    if name == "train-dit" and attention != 4:
+        raise AssertionError(f"the DiT path's net has {attention} attention layers, not its 4 blocks")
     if (name in F32_PATHS) != (summary["dtype"] == "torch.float32"):
         raise AssertionError(f"{name} computed in {summary['dtype']}")
     # level remat recomputes every region in each backward pass: each
@@ -3655,6 +3683,11 @@ def main() -> int:
         # 8. f32 training at 512 px, batch 6: the f32 K1-fwd and K1-bwd
         f32_summary, _ = timed("train-f32", phase_train, card, work, "train-f32")
         torch.cuda.empty_cache()
+
+        # 37. the DiT in bf16 on phase 8's data: K1 at head dim 72
+        dit_summary, _ = timed("train-dit", phase_train, card, work, "train-dit")
+        gc.collect()
+        torch.cuda.empty_cache()
         if args.profile:
             phase_profile_train(card, "profile-train-f32")
             torch.cuda.empty_cache()
@@ -3854,7 +3887,8 @@ def main() -> int:
         row("attention_fwd (K1-fwd)", "stain2stain_tpu_torch/csrc/attention_fwd.cu",
             "stain2stain_tpu/ops/pallas_attention.py:64", k1["cases"][0], summary["k1_launches"],
             {"serve": summary["k1_launches"], "train": train_summary["k1_fwd_launches"],
-             "train_f32": f32_summary["k1_fwd_launches"], "train_fused": fused_summary["k1_fwd_launches"],
+             "train_f32": f32_summary["k1_fwd_launches"], "train_dit": dit_summary["k1_fwd_launches"],
+             "train_fused": fused_summary["k1_fwd_launches"],
              "train_remat": remat_summary["k1_fwd_launches"], "train_fused_remat": fused_remat_summary["k1_fwd_launches"],
              "train_any2any": any2any_summary["k1_fwd_launches"], "serve_any2any": serve_any2any["k1_launches"],
              "train_masked_conditioned": cond_summary["k1_fwd_launches"], "serve_toggle": infer_cond["serve"]["k1_launches"],
@@ -3866,7 +3900,7 @@ def main() -> int:
         row("attention_bwd (K1-bwd)", "stain2stain_tpu_torch/csrc/attention_bwd.cu",
             "stain2stain_tpu/ops/pallas_attention.py:78", k1_bwd["cases"][0], train_summary["k1_bwd_launches"],
             {"train": train_summary["k1_bwd_launches"], "train_f32": f32_summary["k1_bwd_launches"],
-             "train_fused": fused_summary["k1_bwd_launches"], "train_remat": remat_summary["k1_bwd_launches"],
+             "train_dit": dit_summary["k1_bwd_launches"], "train_fused": fused_summary["k1_bwd_launches"], "train_remat": remat_summary["k1_bwd_launches"],
              "train_fused_remat": fused_remat_summary["k1_bwd_launches"],
              "train_any2any": any2any_summary["k1_bwd_launches"],
              "train_masked_conditioned": cond_summary["k1_bwd_launches"],
@@ -3886,6 +3920,7 @@ def main() -> int:
             "none: stain2stain_tpu/ops/dropout.py::hash_dropout is plain jnp, fused by XLA",
             dict(dropout["timings"][0], max_abs_err=dropout["max_abs_err"], library_ms=None), train_summary["dropout_launches"],
             {"train": train_summary["dropout_launches"], "train_f32": f32_summary["dropout_launches"],
+             "train_dit": dit_summary["dropout_launches"],
              "train_fused": fused_summary["dropout_launches"], "train_remat": remat_summary["dropout_launches"],
              "train_fused_remat": fused_remat_summary["dropout_launches"],
              "train_any2any": any2any_summary["dropout_launches"],

@@ -8,7 +8,8 @@
 //     dv = p^T . do,  ds = p * (do . v^T - delta)
 //     dq = ds . k * scale,  dk = ds^T . q * scale
 // with f32 sums; dq, dk and dv are written once, in the inputs' dtype. Inputs
-// are contiguous (BH, T, D) f32 or bf16; D is 16, 32 or 64. The row
+// are contiguous (BH, T, D) f32 or bf16; D is 16, 32 or 64, and 72 for bf16
+// alone (the 3xTF32 passes take multiples of 16 only). The row
 // log-sum-exp lse (natural log, f32 (BH, T)) comes from K1-fwd, or is
 // recomputed here when the caller passes none.
 //
@@ -142,9 +143,10 @@ attention_bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k, cons
   if constexpr (std::is_same<T, bf16>::value) {
     if (lse_in == nullptr) {  // recompute lse on the tensor cores
       __shared__ __align__(16) bf16 ks[2 * kTileElems<D>];
+      zero_pad<D>(ks, tid);
       const int lane = tid & 31;
       const int r0 = tile * kTile + (tid >> 5) * 16;
-      uint32_t qa[D / 16][4];
+      uint32_t qa[kKSteps<D>][4];
       load_a_frags<D>(qa, q + base, r0, t_len, lane);
       float m[2] = {-INFINITY, -INFINITY};
       float l[2] = {0.f, 0.f};
@@ -268,7 +270,9 @@ attention_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
   const bf16* dob = dout + base;
   const float2* stb = stats + static_cast<int64_t>(bh) * t_pad;
 
-  uint32_t ka[D / 16][4], va[D / 16][4];
+  zero_pad<D>(qs, tid);  // both feed products over d (warp_abt)
+  zero_pad<D>(dos, tid);
+  uint32_t ka[kKSteps<D>][4], va[kKSteps<D>][4];
   load_a_frags<D>(ka, k + base, r0, t_len, lane);
   load_a_frags<D>(va, v + base, r0, t_len, lane);
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
@@ -363,7 +367,9 @@ attention_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   const bf16* kb = k + base;
   const bf16* vb = v + base;
 
-  uint32_t qa[D / 16][4], doa[D / 16][4];
+  zero_pad<D>(ks, tid);  // both feed products over d (warp_abt)
+  zero_pad<D>(vs, tid);
+  uint32_t qa[kKSteps<D>][4], doa[kKSteps<D>][4];
   load_a_frags<D>(qa, q + base, r0, t_len, lane);
   load_a_frags<D>(doa, dout + base, r0, t_len, lane);
   float nlse[2], dlt[2];  // rows g and g + 8 (rows past T: lse2 = +inf, so p = 0)
@@ -860,10 +866,14 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
                           static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), stats, bh,
                           t_len, t_pad, scale, stream);
   }
-  return launch_f32<D>(static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-                       static_cast<const float*>(o), static_cast<const float*>(dout), lse,
-                       static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), stats, bh, t_len,
-                       t_pad, scale, stream);
+  if constexpr (D % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);  // no f32 passes at this head dim
+  } else {
+    return launch_f32<D>(static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+                         static_cast<const float*>(o), static_cast<const float*>(dout), lse,
+                         static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), stats, bh, t_len,
+                         t_pad, scale, stream);
+  }
 }
 
 }  // namespace
@@ -889,6 +899,8 @@ extern "C" int s2s_attention_bwd(const void* q, const void* k, const void* v, co
       return launch<32>(q, k, v, o, dout, lp, dq, dk, dv, sp, bh, t_len, t_pad, bf, scale, s);
     case 64:
       return launch<64>(q, k, v, o, dout, lp, dq, dk, dv, sp, bh, t_len, t_pad, bf, scale, s);
+    case 72:
+      return launch<72>(q, k, v, o, dout, lp, dq, dk, dv, sp, bh, t_len, t_pad, bf, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -15,6 +15,15 @@
 // distinct 16-byte bank groups. They arrive by cp.async; rows past T are
 // zero-filled.
 //
+// A head dim that is a multiple of 8 but not of 16 (72 = 4*16 + 8, DiT-XL/2's)
+// takes one more k-step over d, whose upper 8 columns are zero: in the A
+// fragments (registers, never loaded) and in the staged tiles (columns D..D+7
+// of every row, which no copy writes, zeroed once when a kernel starts:
+// zero_pad). Its rows are padded to D + 16 (176 bytes: an odd count of 16-byte
+// groups, so ldmatrix stays free of bank conflicts). The products with d as the
+// n dimension take D / 8 n-tiles exactly, the last one alone (ldmatrix .x2).
+// The instances at D 16, 32 and 64 compile to the SASS they had before d 72.
+//
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4): an accumulator
 // tile holds (row g, columns 2t, 2t+1) in elements 0, 1 and (row g + 8, the
 // same columns) in 2, 3.
@@ -37,29 +46,49 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
-constexpr int kTileElems = kTile * (D + 8);  // a staged tile: 64 rows padded to D + 8
+constexpr int kKSteps = (D + 15) / 16;  // 16-wide k-steps over d; the last half zero where D % 16 == 8
+template <int D>
+constexpr int kRowElems = D % 16 == 0 ? D + 8 : D + 16;  // a staged row
+template <int D>
+constexpr int kTileElems = kTile * kRowElems<D>;  // a staged tile: 64 padded rows
+
+// Columns D..D+7 of the 128 rows of a double-buffered staged tile to zero, where
+// D % 16 == 8: the last k-step of a product over d reads them. No copy writes
+// them, so once before the first barrier of a kernel is enough.
+template <int D>
+__device__ __forceinline__ void zero_pad(bf16* tiles, int tid) {
+  static_assert(D % 8 == 0, "head dim a multiple of 8");
+  if constexpr (D % 16 != 0) {
+    static_assert(2 * kTile == kThreads, "one row of the two tiles a thread");
+    *reinterpret_cast<uint4*>(tiles + tid * kRowElems<D> + D) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
 
 // Start the cp.async copies of rows [row0, row0 + 64) of a contiguous (T, D)
 // bf16 slice into a padded shared tile; rows past T are zero-filled.
 template <int D>
 __device__ __forceinline__ void stage_tile(bf16* dst, const bf16* __restrict__ src, int row0, int t_len, int tid) {
   constexpr int kChunks = D / 8;  // 16-byte chunks of a row
-  static_assert(kTile * kChunks % kThreads == 0, "every thread copies the same number of chunks");
+  constexpr int kTotal = kTile * kChunks;
+  constexpr bool kEven = kTotal % kThreads == 0;  // else (D 72: 4.5 a thread) the last round is partial
 #pragma unroll
-  for (int it = 0; it < kTile * kChunks / kThreads; ++it) {
+  for (int it = 0; it < (kTotal + kThreads - 1) / kThreads; ++it) {
     const int i = tid + it * kThreads;
-    const int r = i / kChunks;
-    const int c = i - r * kChunks;
-    const int row = row0 + r;
-    const bool valid = row < t_len;
-    cp_async16(dst + r * (D + 8) + 8 * c, src + static_cast<int64_t>(valid ? row : 0) * D + 8 * c, valid);
+    if (kEven || i < kTotal) {
+      const int r = i / kChunks;
+      const int c = i - r * kChunks;
+      const int row = row0 + r;
+      const bool valid = row < t_len;
+      cp_async16(dst + r * kRowElems<D> + 8 * c, src + static_cast<int64_t>(valid ? row : 0) * D + 8 * c, valid);
+    }
   }
 }
 
 // The A fragments (one 16 x 16 slice of D per entry) of rows [r0, r0 + 16) of
-// a contiguous (T, D) bf16 slice, read from device memory; rows past T are 0.
+// a contiguous (T, D) bf16 slice, read from device memory; rows past T are 0,
+// and so are columns past D (the upper half of the last k-step at D 72).
 template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[D / 16][4], const bf16* __restrict__ src, int r0,
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[kKSteps<D>][4], const bf16* __restrict__ src, int r0,
                                              int t_len, int lane) {
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -68,16 +97,21 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&a)[D / 16][4], const bf1
     const int row = r0 + g + 8 * h;
     const uint32_t* p = reinterpret_cast<const uint32_t*>(src + static_cast<int64_t>(row) * D + 2 * t);
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      a[ks][h] = row < t_len ? __ldg(p + 8 * ks) : 0u;          // columns 16ks + 2t, +1
-      a[ks][h + 2] = row < t_len ? __ldg(p + 8 * ks + 4) : 0u;  // columns 16ks + 8 + 2t, +1
+    for (int ks = 0; ks < kKSteps<D>; ++ks) {
+      a[ks][h] = row < t_len ? __ldg(p + 8 * ks) : 0u;  // columns 16ks + 2t, +1
+      if (16 * ks + 8 < D) {
+        a[ks][h + 2] = row < t_len ? __ldg(p + 8 * ks + 4) : 0u;  // columns 16ks + 8 + 2t, +1
+      } else {
+        a[ks][h + 2] = 0u;
+      }
     }
   }
 }
 
 // s = A . B^T: A (16 x D) as fragments, B a staged tile of 64 rows x D.
 template <int D>
-__device__ __forceinline__ void warp_abt(float (&s)[8][4], const uint32_t (&a)[D / 16][4], const bf16* b, int lane) {
+__device__ __forceinline__ void warp_abt(float (&s)[8][4], const uint32_t (&a)[kKSteps<D>][4], const bf16* b,
+                                         int lane) {
   const int lr = lane & 7;
   const int lj = lane >> 3;
 #pragma unroll
@@ -85,12 +119,12 @@ __device__ __forceinline__ void warp_abt(float (&s)[8][4], const uint32_t (&a)[D
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
+  for (int ks = 0; ks < kKSteps<D>; ++ks) {
 #pragma unroll
     for (int np = 0; np < 4; ++np) {
       // matrices {rows 0-7: k lo, k hi}, {rows 8-15: k lo, k hi} of B's 16-row group np
       uint32_t f[4];
-      ldsm_x4(f, b + (np * 16 + lr + ((lj >> 1) << 3)) * (D + 8) + ks * 16 + ((lj & 1) << 3));
+      ldsm_x4(f, b + (np * 16 + lr + ((lj >> 1) << 3)) * kRowElems<D> + ks * 16 + ((lj & 1) << 3));
       mma_bf16(s[2 * np], a[ks], f[0], f[1]);
       mma_bf16(s[2 * np + 1], a[ks], f[2], f[3]);
     }
@@ -112,9 +146,15 @@ __device__ __forceinline__ void warp_pb(float (&acc)[D / 8][4], const float (&p)
     for (int dp = 0; dp < D / 16; ++dp) {
       // matrices {k 0-7, k 8-15} x {columns lo, columns hi} of B rows 16kk..16kk+15
       uint32_t f[4];
-      ldsm_x4_trans(f, b + (kk * 16 + lr + ((lj & 1) << 3)) * (D + 8) + dp * 16 + ((lj >> 1) << 3));
+      ldsm_x4_trans(f, b + (kk * 16 + lr + ((lj & 1) << 3)) * kRowElems<D> + dp * 16 + ((lj >> 1) << 3));
       mma_bf16(acc[2 * dp], a, f[0], f[1]);
       mma_bf16(acc[2 * dp + 1], a, f[2], f[3]);
+    }
+    if constexpr (D % 16 != 0) {
+      // the last 8 columns alone: matrices {k 0-7, k 8-15} (lanes 0-15 give the rows)
+      uint32_t f[2];
+      ldsm_x2_trans(f, b + (kk * 16 + lr + ((lj & 1) << 3)) * kRowElems<D> + (D / 16) * 16);
+      mma_bf16(acc[D / 8 - 1], a, f[0], f[1]);
     }
   }
 }
@@ -142,7 +182,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 // exponentials with a polynomial on the FMA pipes is later work.
 template <int D, bool kPV>
 __device__ __forceinline__ void softmax_rows(const bf16* __restrict__ k, const bf16* __restrict__ v, int t_len,
-                                             float c, const uint32_t (&qa)[D / 16][4], bf16* ks, bf16* vs,
+                                             float c, const uint32_t (&qa)[kKSteps<D>][4], bf16* ks, bf16* vs,
                                              float (&m)[2], float (&l)[2], float (&acc)[D / 8][4]) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;

@@ -5,7 +5,9 @@
 //     o = softmax(q . k^T * scale) . v
 // with the logits, the row max and the row sum in f32 and the p.v sum in f32,
 // output in q's dtype; the (T, T) logits never reach device memory. Inputs are
-// contiguous (BH, T, D) f32 or bf16 tensors; D is 16, 32 or 64. Optionally
+// contiguous (BH, T, D) f32 or bf16 tensors; D is 16, 32 or 64, and 72 for
+// bf16 alone (DiT-XL/2's heads; the f32 kernel's register tiling takes
+// multiples of 16 only). Optionally
 // also each row's log-sum-exp of the scaled logits, f32 (BH, T), which K1-bwd
 // takes instead of recomputing it (the JAX VJP recomputes it only because lane
 // padding made such arrays 128x larger on the TPU, pallas_attention.py:22-27).
@@ -89,7 +91,8 @@ attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int r0 = qtile * kTile + (threadIdx.x >> 5) * 16;
   const int64_t base = static_cast<int64_t>(bh) * t_len * D;
 
-  uint32_t qa[D / 16][4];
+  zero_pad<D>(ks, threadIdx.x);  // before softmax_rows' first barrier
+  uint32_t qa[kKSteps<D>][4];
   load_a_frags<D>(qa, q + base, r0, t_len, lane);
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
@@ -376,6 +379,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
     attention_fwd_mma_kernel<D><<<static_cast<unsigned>(bh) * n_qtiles, kThreads, 0, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<bf16*>(o), lse, t_len, n_qtiles, c);
+  } else if constexpr (D % 16 != 0) {
+    return cudaErrorInvalidValue;  // no f32 kernel at this head dim
   } else {
     constexpr int bytes = F32Layout<D>::kBytes;
     const cudaError_t err =
@@ -407,6 +412,8 @@ extern "C" int s2s_attention_fwd(const void* q, const void* k, const void* v, vo
       return static_cast<int>(launch<32>(q, k, v, o, lp, bh, t_len, dtype == 1, scale, s));
     case 64:
       return static_cast<int>(launch<64>(q, k, v, o, lp, bh, t_len, dtype == 1, scale, s));
+    case 72:
+      return static_cast<int>(launch<72>(q, k, v, o, lp, bh, t_len, dtype == 1, scale, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

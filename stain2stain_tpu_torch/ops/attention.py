@@ -1,4 +1,4 @@
-"""Multi-head self-attention of the UNet, with kernels K1-fwd and K1-bwd on the card.
+"""Multi-head self-attention of the UNet and the DiT, with kernels K1-fwd and K1-bwd on the card.
 
 Counterpart of ``stain2stain_tpu/ops/pallas_attention.py``. The TPU kernels
 become CUDA C++ for ``sm_90a``, built by ``nvcc`` at first use and called
@@ -36,7 +36,9 @@ import torch
 from .. import _build
 from .._device import runs_plain
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 72)
+# head dims of the bf16 tensor-core kernels alone (the f32 kernels tile d in 16s)
+BF16_ONLY_HEAD_DIMS = (72,)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -110,6 +112,8 @@ def _check(*tensors) -> None:
     bh, t, d = first.shape
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"fused_attention supports head dims {SUPPORTED_HEAD_DIMS}, got {d}")
+    if d in BF16_ONLY_HEAD_DIMS and first.dtype != torch.bfloat16:
+        raise ValueError(f"fused_attention takes head dim {d} in bfloat16 only, got {first.dtype}")
     if bh * _tiles(t) >= 2**31:  # every kernel's grid: one block per (bh, 64 rows)
         raise ValueError(f"fused_attention grid too large for BH={bh}, T={t}")
 

@@ -1,5 +1,5 @@
 """GroupNorm ops of the UNet with memory-lean backwards
-(counterpart of ``stain2stain_tpu/ops/norms.py``).
+(counterpart of ``stain2stain_tpu/ops/norms.py``), and the DiT's LayerNorm.
 
 Three variants cover every norm site of the ADM UNet:
 
@@ -7,6 +7,12 @@ Three variants cover every norm site of the ADM UNet:
 - :func:`group_norm_silu`       — GN → SiLU (res-block entry, final out norm)
 - :func:`group_norm_film_silu`  — GN → h·(1+scale)+shift → SiLU (FiLM
   ``use_scale_shift_norm`` conditioning inside res blocks)
+
+and one covers every norm site of the DiT (``models/dit.py``), which the JAX
+package does not have:
+
+- :func:`layer_norm_modulate`   — LN without affine → x̂·(1+scale)+shift, scale
+  and shift per sample (adaLN), the statistics in f32 from the centred form
 
 The math is the JAX package's: f32 statistics from the E[x²]−E[x]² form,
 variance clamped at 0, output in x's dtype. Layout is NCHW (channels second),
@@ -162,6 +168,39 @@ class _GroupNormFiLMSiLU(torch.autograd.Function):
         )
 
 
+class _LayerNormModulate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, shift, eps: float, dtype):
+        acc = torch.promote_types(x.dtype, _F32)  # f32 statistics (f64 stays f64: gradcheck)
+        xa = x.to(acc)
+        var, mean = torch.var_mean(xa, dim=-1, unbiased=False, keepdim=True)
+        rstd = torch.rsqrt(var + eps)
+        y = (xa - mean) * rstd * (1.0 + scale.to(acc)[:, None]) + shift.to(acc)[:, None]
+        ctx.save_for_backward(x, scale, mean, rstd)
+        ctx.shift_dtype = shift.dtype
+        return y.to(dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, mean, rstd = ctx.saved_tensors
+        acc = mean.dtype
+        dy32 = dy.to(acc)
+        xhat = (x.to(acc) - mean) * rstd
+        dshift = dy32.sum(dim=1)
+        dscale = (dy32 * xhat).sum(dim=1)
+        dxhat = dy32 * (1.0 + scale.to(acc)[:, None])
+        dx = rstd * (dxhat - dxhat.mean(dim=-1, keepdim=True) - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+        return dx.to(x.dtype), dscale.to(scale.dtype), dshift.to(ctx.shift_dtype), None, None
+
+
+def layer_norm_modulate(x, scale, shift, eps: float = 1e-6, dtype=None) -> torch.Tensor:
+    """LayerNorm of (B, T, C) ``x`` over C without affine, then x̂·(1+scale)+shift
+    with (B, C) ``scale`` and ``shift`` per sample; f32 statistics, the result
+    in ``dtype`` (x's by default). The backward saves (x, scale, mean, rstd)
+    and recomputes x̂; its reductions run in f32."""
+    return _LayerNormModulate.apply(x, scale, shift, eps, dtype or x.dtype)
+
+
 def group_norm(x, gamma, beta, groups: int, eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm; returns x.dtype. gamma/beta (C,) f32."""
     return _GroupNorm.apply(x, gamma, beta, groups, eps)
@@ -177,4 +216,4 @@ def group_norm_film_silu(x, gamma, beta, scale, shift, groups: int, eps: float =
     return _GroupNormFiLMSiLU.apply(x, gamma, beta, scale, shift, groups, eps)
 
 
-__all__ = ["group_norm", "group_norm_silu", "group_norm_film_silu"]
+__all__ = ["group_norm", "group_norm_silu", "group_norm_film_silu", "layer_norm_modulate"]
