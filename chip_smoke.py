@@ -11,7 +11,8 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    ptxas must report no spills for the kernels of ``SPILL_CHECKED``: the
    bf16 attention kernels, the f32 K1-fwd kernel, the six 3xTF32 kernels of
    the f32 K1-bwd (passes 2 and 3 at d 16, 32, 64), the wgmma kernels of
-   K2/K3 and K5, K4, and the hash dropout kernel.
+   K2/K3 and K5, K4, the hash dropout kernel and the LayerNorm-modulate pair
+   (its forward on f32 x).
 3. K1-fwd (``csrc/attention_fwd.cu``) against its plain PyTorch version on
    the card, output and row log-sum-exp, with the stated tolerances: the
    serving shapes (f32 and bf16), the training shapes (bf16 at 256 px, f32
@@ -232,7 +233,8 @@ Phases (any failure ends the script with a non-zero exit and no result line):
     cv2 decode of the PNGs bit for bit; ``eval_quality`` at 2 euler steps on
     its checkpoint (two test batches of 16) prints one JSON line (SSIM in
     [-1, 1], a finite PSNR), K1-fwd once a batch.
-35. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5 and the hash dropout,
+35. A ``kernels`` JSON line (K1-fwd, K1-bwd, K2–K5, the hash dropout and the
+    LayerNorm-modulate pair,
     each with ``ms`` and ``queued_ms``, and launches by path, the multitask
     paths', phases 22–25's, 27–28's, 29–32's and 33–34's included), the
     seconds of every phase, the card line, and ``{"ok": true, "device":
@@ -252,7 +254,16 @@ Phases (any failure ends the script with a non-zero exit and no result line):
     depth cut to 4 blocks, batch 6, 8 steps, validation, checkpoints, test; K1 in
     bf16 at head dim 72, K1-fwd once per block of each net forward and K1-bwd
     once per block a step, its own counts zeroed just before the run; K2–K5 and
-    the dropout kernel never.
+    the dropout kernel never. The LayerNorm-modulate kernels: the forward
+    (2 x blocks + 1) times a net forward, the backward as often a step; every
+    other train path launches neither.
+38. ``ln-modulate-kernel`` (run after phase 36): the DiT's LayerNorm-modulate
+    kernels (``csrc/layer_norm_modulate.cu``) against the plain chain in f32,
+    forward and every gradient, twice bit for bit, one launch each a call, at
+    ``LN_MODULATE_CASES``; a ``ValueError`` for C not a multiple of 8 and for
+    float64 on the card; their times against their bound, the plain chain and
+    torch's ``F.layer_norm`` chain at the DiT cell's shape
+    (``phase_ln_modulate_kernel``).
 
 With ``--profile`` it also profiles a tile batch and a request, and a train
 step of each path (``phase_profile_train``), the binary multitask study's
@@ -414,7 +425,10 @@ def attention_bound(bh: int, t: int, d: int, dtype: str, exp_per_s: float, lse: 
 
 # the kernels ptxas must compile without spills: the bf16 attention kernels of
 # K1-fwd and K1-bwd, the register-tiled f32 K1-fwd, the 3xTF32 passes of the
-# f32 K1-bwd, the wgmma kernels of K2/K3 and K5, and K4
+# f32 K1-bwd, the wgmma kernels of K2/K3 and K5, K4, the hash dropout, and the
+# LayerNorm-modulate backward and its forward on f32 x (the DiT's residual
+# stream; on bf16 x at 4 and 5 vectors a lane ptxas keeps one 4-byte value on
+# the stack by its own choice, at 56 and 64 registers)
 SPILL_CHECKED = {
     "attention_fwd.cu": ("mma_kernel", "f32_kernel"),
     "attention_bwd.cu": ("mma_kernel", "tf32_kernel", "prep"),
@@ -422,6 +436,7 @@ SPILL_CHECKED = {
     "prologue_grad.cu": ("prologue_grad_kernel",),
     "conv3x3_wgrad.cu": ("conv3x3_wgrad_kernel",),
     "dropout.cu": ("hash_dropout_kernel",),
+    "layer_norm_modulate.cu": ("ln_modulate_fwd_kernelIf", "ln_modulate_bwd_kernel"),
 }
 
 
@@ -1276,7 +1291,8 @@ def phase_train(card: str, work: Path, name: str = "train", callbacks: Optional[
         peak_mem_gib=peak_gib, peak_reserved_gib=peak_reserved_gib, wall_s=wall_s, losses=clock.losses, forwards=clock.forwards[0],
         k1_fwd_launches=fwd_launches, k1_bwd_launches=bwd_launches,
         k2_launches=k2, k3_launches=k3, k4_launches=k4, k5_launches=k5, dropout_launches=launches["dropout"],
-        dropout_layers=dropout_layers,
+        dropout_layers=dropout_layers, ln_modulate_fwd_launches=launches["ln_modulate_fwd"],
+        ln_modulate_bwd_launches=launches["ln_modulate_bwd"],
         val_loss=metrics.get("val/loss"), test_loss=metrics.get("test/loss"),
         best=Path(ckpt.best_model_path).name if ckpt and ckpt.best_model_path else None,
         best_path=ckpt.best_model_path if ckpt else None,
@@ -1306,6 +1322,12 @@ def phase_train(card: str, work: Path, name: str = "train", callbacks: Optional[
                              "(the UNet paths have attention layers, the multitask nets none)")
     if name == "train-dit" and attention != 4:
         raise AssertionError(f"the DiT path's net has {attention} attention layers, not its 4 blocks")
+    # the LayerNorm-modulate pair: two a DiT block and the final layer's, each net forward and each step
+    ln_calls = 2 * attention + 1 if name == "train-dit" else 0
+    ln_launches = (summary["ln_modulate_fwd_launches"], summary["ln_modulate_bwd_launches"])
+    if ln_launches != (ln_calls * clock.forwards[0], ln_calls * steps):
+        raise AssertionError(f"{name}: the LayerNorm-modulate kernels launched {ln_launches} times, not "
+                             f"({ln_calls} x {clock.forwards[0]} forwards, {ln_calls} x {steps} steps)")
     if (name in F32_PATHS) != (summary["dtype"] == "torch.float32"):
         raise AssertionError(f"{name} computed in {summary['dtype']}")
     # level remat recomputes every region in each backward pass: each
@@ -2964,6 +2986,163 @@ def phase_dropout_kernel(card: str) -> dict:
     return out
 
 
+# the LayerNorm-modulate kernels' checks: (what, (B, T, C), x dtype, scale/shift dtype, y dtype, peaked rows)
+LN_MODULATE_CASES = (
+    ("DiT-XL/2 training shape: f32 x, the adaLN layer's bf16 chunks, bf16 y", (32, 1024, 1152), "float32", "bfloat16",
+     "bfloat16", False),
+    ("f32 throughout, odd T: a ragged last backward block", (4, 257, 1152), "float32", "float32", "float32", False),
+    ("DiT-S width, bf16 x", (2, 64, 384), "bfloat16", "bfloat16", "bfloat16", False),
+    ("peaked rows: one value of 1000 a row", (4, 64, 1152), "float32", "bfloat16", "bfloat16", True),
+)
+LN_MODULATE_SHAPE = (32, 1024, 1152)  # the DiT-XL/2 cell's: batch 32, T 1024, hidden 1152
+LN_MODULATE_CALLS = 57  # a DiT-XL/2 step: 2 a block x 28 + the final layer's
+# largest error against the plain chain in f32: relative norm where the output is
+# f32; where it is bf16, one bf16 step of the f32 value plus this share of its
+# largest magnitude (the f32 arithmetic's own rounding, which near 0 exceeds a step)
+LN_MODULATE_TOL = {"y": 1e-6, "grad": 1e-5}
+
+
+def _bf16_steps_over(got, want, atol: float) -> float:
+    """max(|got - want| - atol) in bf16 steps of ``want`` (2^(exponent - 8)): at
+    most 1 when ``got`` lies within one step of ``want`` beyond ``atol``."""
+    import torch
+
+    want = want.float()
+    step = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+    over = ((got.float() - want).abs() - atol).clamp(min=0)
+    return float(torch.where(over == 0, 0.0, over / step.clamp(min=2.0**-133)).max())
+
+
+def ln_modulate_case(shape, x_dtype: str, param_dtype: str, y_dtype: str, peaked: bool, seed: int = 0) -> dict:
+    """``layer_norm_modulate`` on the card (the kernels) against the plain chain
+    (``norms._LayerNormModulate``) in f32 on the same values, forward and every
+    gradient, with scale and shift as the DiT passes them (two (B, C) chunks of
+    a (B, 6C) adaLN output); twice, bit for bit; one launch of each kernel a call."""
+    import torch
+
+    from stain2stain_tpu_torch.ops import norms
+
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, t, c = shape
+    x = torch.randn(shape, device="cuda", generator=gen) * 3 + 1
+    if peaked:
+        x[:, :, 7] = 1000.0
+    x = x.to(dt[x_dtype])
+    scale, shift = (torch.randn(b, 6 * c, device="cuda", generator=gen) * 0.5).to(dt[param_dtype]).chunk(6, dim=1)[:2]
+    dy = torch.randn(shape, device="cuda", generator=gen).to(dt[y_dtype])
+    before = (norms.ln_modulate_fwd.launches, norms.ln_modulate_bwd.launches)
+    runs = []
+    for _ in range(2):
+        leaves = [a.detach().requires_grad_() for a in (x, scale, shift)]
+        y = norms.layer_norm_modulate(*leaves, dtype=dt[y_dtype])
+        runs.append((y.detach(), *torch.autograd.grad(y, leaves, dy)))
+    launched = [norms.ln_modulate_fwd.launches - before[0], norms.ln_modulate_bwd.launches - before[1]]
+    leaves = [a.detach().float().requires_grad_() for a in (x, scale, shift)]
+    y = norms._LayerNormModulate.apply(*leaves, 1e-6, torch.float32)
+    ref = (y.detach(), *torch.autograd.grad(y, leaves, dy.float()))
+    errors, ok = {}, True
+    for name, got, want in zip(("y", "dx", "dscale", "dshift"), runs[0], ref):
+        tol = LN_MODULATE_TOL["y" if name == "y" else "grad"]
+        rel = float((got.float() - want).norm() / want.norm())
+        errors[name] = {"dtype": str(got.dtype).split(".")[-1], "rel_norm": rel, "max_abs": max_abs_diff(got, want)}
+        if got.dtype == torch.float32:
+            ok &= rel <= tol
+        else:
+            errors[name]["bf16_steps"] = _bf16_steps_over(got, want, tol * float(want.abs().max()))
+            ok &= errors[name]["bf16_steps"] <= 1.0
+    identical = all(same_bits(a, b) for a, b in zip(*runs))
+    ok &= identical and launched == [2, 2]
+    return dict(shape=list(shape), x=x_dtype, params=param_dtype, y=y_dtype, peaked=peaked, errors=errors,
+                bit_identical=identical, launches=launched, ok=ok)
+
+
+def phase_ln_modulate_kernel(card: str) -> dict:
+    """``ln-modulate-kernel``: the DiT's LayerNorm-modulate kernels
+    (``csrc/layer_norm_modulate.cu``) against the plain chain at the cases of
+    ``LN_MODULATE_CASES`` (:func:`ln_modulate_case`); a ``ValueError`` for C not
+    a multiple of 8 and for float64 on the card, with nothing launched. Then at
+    the DiT cell's shape (f32 x, bf16 chunks, bf16 y): each kernel's ``ms`` and
+    ``queued_ms`` against its bound (forward: x read, y written; backward: dy
+    and x read, dx written) and against the plain chain's forward and backward
+    and torch's ``F.layer_norm`` chain, the pair as a training step calls it
+    (through autograd), and the pair's queued milliseconds a DiT-XL/2 step."""
+    import types
+
+    import torch
+    import torch.nn.functional as F
+
+    from stain2stain_tpu_torch.ops import norms
+
+    cases = []
+    for what, *args in LN_MODULATE_CASES:
+        cases.append(dict(what=what, **ln_modulate_case(*args)))
+        log("ln-modulate-case " + json.dumps(cases[-1]))
+        torch.cuda.empty_cache()
+    refused = []
+    before = (norms.ln_modulate_fwd.launches, norms.ln_modulate_bwd.launches)
+    for what, (x, p) in (("C 20", (torch.zeros(2, 4, 20, device="cuda"), torch.zeros(2, 20, device="cuda"))),
+                         ("float64", (torch.zeros(2, 4, 16, device="cuda", dtype=torch.float64),
+                                      torch.zeros(2, 16, device="cuda", dtype=torch.float64)))):
+        try:
+            norms.layer_norm_modulate(x, p, p)
+        except ValueError as e:
+            refused.append(f"{what}: {e}")
+    refused_ok = len(refused) == 2 and before == (norms.ln_modulate_fwd.launches, norms.ln_modulate_bwd.launches)
+    log("ln-modulate-refused " + json.dumps(refused))
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, t, c = LN_MODULATE_SHAPE
+    n = b * t * c
+    x = (torch.randn(LN_MODULATE_SHAPE, device="cuda", generator=gen) * 3 + 1).requires_grad_()
+    ada = (torch.randn(b, 6 * c, device="cuda", generator=gen) * 0.5).to(bf16).requires_grad_()
+    dy = torch.randn(LN_MODULATE_SHAPE, device="cuda", generator=gen).to(bf16)
+
+    def chunks():
+        return ada.chunk(6, dim=1)[:2]
+
+    def pair(op):
+        scale, shift = chunks()
+        torch.autograd.grad(op(x, scale, shift), (x, ada), dy)
+
+    kernel = lambda x, s, h: norms.layer_norm_modulate(x, s, h, dtype=bf16)  # noqa: E731
+    plain = lambda x, s, h: norms._LayerNormModulate.apply(x, s, h, 1e-6, bf16)  # noqa: E731
+    library = lambda x, s, h: (F.layer_norm(x, (c,), eps=1e-6) * (1 + s.float()[:, None])  # noqa: E731
+                               + h.float()[:, None]).to(bf16)
+    scale, shift = (p.detach() for p in chunks())
+    xd = x.detach()
+    _, mean, rstd = norms.ln_modulate_fwd(xd, scale, shift, 1e-6, bf16)
+    plain_ctx = types.SimpleNamespace(saved_tensors=(xd, scale, mean[..., None], rstd[..., None]), shift_dtype=bf16)
+    with torch.no_grad():
+        fwd = dict(ms=cuda_ms(lambda: norms.ln_modulate_fwd(xd, scale, shift, 1e-6, bf16), repeats=20),
+                   queued_ms=cuda_queued_ms(lambda: norms.ln_modulate_fwd(xd, scale, shift, 1e-6, bf16)),
+                   plain_queued_ms=cuda_queued_ms(lambda: plain(xd, scale, shift), calls=5),
+                   library_queued_ms=cuda_queued_ms(lambda: library(xd, scale, shift), calls=5),
+                   bound_ms=6 * n / PEAK_BYTES_PER_S * 1e3)
+        bwd = dict(ms=cuda_ms(lambda: norms.ln_modulate_bwd(xd, dy, scale, mean, rstd, bf16), repeats=20),
+                   queued_ms=cuda_queued_ms(lambda: norms.ln_modulate_bwd(xd, dy, scale, mean, rstd, bf16)),
+                   plain_queued_ms=cuda_queued_ms(lambda: norms._LayerNormModulate.backward(plain_ctx, dy), calls=5),
+                   bound_ms=10 * n / PEAK_BYTES_PER_S * 1e3)
+    both = dict(ms=cuda_ms(lambda: pair(kernel), repeats=20), queued_ms=cuda_queued_ms(lambda: pair(kernel)),
+                plain_ms=cuda_ms(lambda: pair(plain), repeats=5), plain_queued_ms=cuda_queued_ms(lambda: pair(plain), calls=5),
+                library_ms=cuda_ms(lambda: pair(library), repeats=5),
+                library_queued_ms=cuda_queued_ms(lambda: pair(library), calls=5),
+                bound_ms=16 * n / PEAK_BYTES_PER_S * 1e3)
+    for row in (fwd, bwd, both):
+        row["bandwidth_share"] = row["bound_ms"] / row["queued_ms"]
+    step = {k: LN_MODULATE_CALLS * both[k] for k in ("queued_ms", "plain_queued_ms", "library_queued_ms", "bound_ms")}
+    out = dict(card=card, shape=list(LN_MODULATE_SHAPE), dtype="float32 x, bfloat16 scale/shift/y", fwd=fwd, bwd=bwd,
+               pair=both, step_ms=step, cases=cases, refused=refused,
+               max_abs_err=max(e["max_abs"] for cs in cases for e in cs["errors"].values()))
+    log("ln-modulate-kernel " + json.dumps({k: v for k, v in out.items() if k != "cases"}))
+    bad = [cs for cs in cases if not cs["ok"]]
+    if bad or not refused_ok:
+        raise AssertionError(f"the LayerNorm-modulate kernels are not the plain chain, not deterministic, or did not "
+                             f"launch once a call, or took what they must refuse ({refused}): {bad}")
+    return out
+
+
 def _device_us(event) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, name):
@@ -3651,6 +3830,8 @@ def main() -> int:
     k1_bwd = timed("k1-bwd", phase_k1_bwd, exp_per_s)
     # 36. the hash dropout kernel against the plain product
     dropout = timed("dropout-kernel", phase_dropout_kernel, card)
+    # 38. the LayerNorm-modulate kernels against the plain chain
+    ln = timed("ln-modulate-kernel", phase_ln_modulate_kernel, card)
 
     # 5. the serving path at full width
     summary, net = timed("serve", phase_slice, card)
@@ -3928,6 +4109,18 @@ def main() -> int:
              **{n.replace("-", "_"): m["dropout_launches"] for n, m in mask_paths.items()},
              "train_s2b": s2b_summary["dropout_launches"]},
             not dropout["bad"]),
+    ] + [
+        row(f"ln_modulate_{part}", "stain2stain_tpu_torch/csrc/layer_norm_modulate.cu",
+            "none: the JAX package has no DiT; the plain chain is ops/norms.py::_LayerNormModulate",
+            dict(ln[part], max_abs_err=ln["max_abs_err"], plain_ms=ln[part]["plain_queued_ms"],
+                 library_ms=ln[part].get("library_queued_ms"), bound_by="bytes", shape=ln["shape"], dtype=ln["dtype"]),
+            dit_summary[f"ln_modulate_{part}_launches"],
+            {path: s[f"ln_modulate_{part}_launches"] for path, s in (
+                ("train", train_summary), ("train_f32", f32_summary), ("train_dit", dit_summary),
+                ("train_fused", fused_summary), ("train_remat", remat_summary),
+                ("train_any2any", any2any_summary), ("train_masked_conditioned", cond_summary))},
+            not [c for c in ln["cases"] if not c["ok"]])
+        for part in ("fwd", "bwd")
     ]
     log(f"total: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))

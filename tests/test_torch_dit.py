@@ -1,7 +1,8 @@
 """The DiT velocity net of the port (``models/dit.py``) against the
 benchmark's plain reference (``benchmark/reference/dit.py``) on the CPU, at a
 small size (depth 2, hidden 144 = 2 heads of 72, 32-px tiles in 8-px patches:
-T 16); its LayerNorm-modulate op; the published net's size on ``meta``; K1's
+T 16); its LayerNorm-modulate op (the plain chain on CPU tensors, the checks
+and counters of its card kernels); the published net's size on ``meta``; K1's
 check at head dim 72."""
 
 from __future__ import annotations
@@ -16,8 +17,10 @@ from torch.profiler import ProfilerActivity, profile
 from benchmark import inputs, work
 from benchmark.core import reference
 from benchmark.tests.tiny import ROOT
+from stain2stain_tpu_torch import _build, ops
 from stain2stain_tpu_torch.models import DiT
 from stain2stain_tpu_torch.ops import attention as tattn
+from stain2stain_tpu_torch.ops import norms
 from stain2stain_tpu_torch.ops.norms import layer_norm_modulate
 from stain2stain_tpu_torch.utils import tracing
 
@@ -146,6 +149,49 @@ def test_layer_norm_modulate_is_the_plain_chain_and_its_backward_checks():
     assert layer_norm_modulate(x, scale, shift, dtype=torch.bfloat16).dtype == torch.bfloat16
     args = [a.double().requires_grad_() for a in (x[:, :3, :8], scale[:, :8], shift[:, :8])]
     assert torch.autograd.gradcheck(lambda *a: layer_norm_modulate(*a), args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_layer_norm_modulate_keeps_the_plain_chain_on_cpu_tensors(dtype):
+    """CPU tensors of any float dtype take ``_LayerNormModulate`` both ways, bit
+    for bit, and never count a launch of the card's kernels."""
+    ops.zero_launches()
+    g = torch.Generator().manual_seed(2)
+    leaves = [(torch.randn(*shape, generator=g) * 3 + 1).to(dtype).requires_grad_() for shape in
+              ((2, 5, 16), (2, 16), (2, 16))]
+    dy = torch.randn(2, 5, 16, generator=g).to(dtype)
+    y = layer_norm_modulate(*leaves)
+    plain = norms._LayerNormModulate.apply(*leaves, 1e-6, dtype)
+    assert torch.equal(y, plain)
+    for a, b in zip(torch.autograd.grad(y, leaves, dy), torch.autograd.grad(plain, leaves, dy)):
+        assert torch.equal(a, b)
+    assert ops.launches()["ln_modulate_fwd"] == 0 and ops.launches()["ln_modulate_bwd"] == 0
+
+
+@pytest.mark.parametrize("x_shape,x_dtype,p_dtypes,match", [
+    ((2, 4, 20), torch.float32, (torch.float32, torch.float32), "multiple of 8"),
+    ((2, 4, 1160), torch.float32, (torch.float32, torch.float32), "up to 1152"),
+    ((2, 4, 16), torch.float64, (torch.float64, torch.float64), "float64"),
+    ((2, 4, 16), torch.float32, (torch.float16, torch.float16), "float16"),
+    ((2, 4, 16), torch.float32, (torch.float32, torch.bfloat16), "one dtype"),
+    ((2, 16), torch.float32, (torch.float32, torch.float32), r"\(B, T, C\)"),
+], ids=["c20", "c1160", "float64", "float16-params", "mixed-params", "2d"])
+def test_ln_modulate_kernels_refuse_before_anything_builds(x_shape, x_dtype, p_dtypes, match):
+    """The card's wrappers check shapes and dtypes first: what the kernels do
+    not take raises a ``ValueError`` naming it, before nvcc or a launch."""
+    x = torch.zeros(x_shape, dtype=x_dtype)
+    scale, shift = (torch.zeros(2, x_shape[-1], dtype=dt) for dt in p_dtypes)
+    with pytest.raises(ValueError, match=match):
+        norms.ln_modulate_fwd(x, scale, shift, 1e-6, x_dtype)
+    assert norms.ln_modulate_fwd.launches == 0
+
+
+def test_ln_modulate_launch_counts_are_listed_and_reset():
+    assert "layer_norm_modulate.cu" in _build.SOURCES
+    norms.ln_modulate_fwd.launches, norms.ln_modulate_bwd.launches = 57, 57
+    assert ops.launches()["ln_modulate_fwd"] == 57 and ops.launches()["ln_modulate_bwd"] == 57
+    ops.zero_launches()
+    assert norms.ln_modulate_fwd.launches == 0 and norms.ln_modulate_bwd.launches == 0
 
 
 @pytest.mark.parametrize("dtype,d,ok", [(torch.bfloat16, 72, True), (torch.float32, 72, False),

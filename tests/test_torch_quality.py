@@ -190,7 +190,8 @@ def test_quality_run_resumes_in_segments_bit_for_bit(tmp_path, capsys):
     assert [e for e, _ in summary["val_loss"]] == [1, 2] and summary["fid_comparable"] is False
     assert set(summary["ssim"]) == {"euler-2", "euler-8", "euler-50", "dopri5"}
     assert all(-1 <= v <= 1 for v in summary["ssim"].values())
-    assert set(summary["train_launches"]) == {"K1-fwd", "K1-bwd", "K2", "K3", "K4", "K5", "dropout"}
+    assert set(summary["train_launches"]) == {"K1-fwd", "K1-bwd", "K2", "K3", "K4", "K5", "dropout",
+                                            "ln_modulate_fwd", "ln_modulate_bwd"}
     assert summary["jax_record"]["quality_real_256"]["ssim"]["euler-2"] == 0.935
 
 
