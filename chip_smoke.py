@@ -938,8 +938,8 @@ def phase_slice(card: str) -> tuple[dict, object]:
     import torch
     from PIL import Image
 
+    from stain2stain_tpu_torch import ops
     from stain2stain_tpu_torch.config import compose, instantiate
-    from stain2stain_tpu_torch.ops.attention import fused_attention
     from stain2stain_tpu_torch.ops.solvers import SolverConfig
     from stain2stain_tpu_torch.server import TranslationServer, serve_forever
     from stain2stain_tpu_torch.tasks import ConditionalFlowMatchingModule
@@ -958,7 +958,7 @@ def phase_slice(card: str) -> tuple[dict, object]:
     tile, overlap, batch = 256, 32, 16
 
     # ---- the main path: counts zeroed just before, read just after --------
-    fused_attention.launches = 0
+    ops.zero_launches()
     evals[0] = 0
     t0 = time.perf_counter()
     server = TranslationServer(task, num_steps=2, tile=tile, overlap=overlap, batch=batch)
@@ -1013,7 +1013,7 @@ def phase_slice(card: str) -> tuple[dict, object]:
     torch.cuda.synchronize()
     dopri_s = time.perf_counter() - t2
     dopri_evals = evals[0] - before
-    launches, total_evals = fused_attention.launches, evals[0]
+    launches, total_evals = ops.launches()["K1-fwd"], evals[0]
     # ---- end of the main path ---------------------------------------------
     if not torch.isfinite(x1).all() or x1.shape != src.shape:
         raise AssertionError("dopri5 generate returned a non-finite or misshapen batch")
@@ -1038,8 +1038,8 @@ def phase_unet_parity(net) -> dict:
     import numpy as np
     import torch
 
+    from stain2stain_tpu_torch import ops
     from stain2stain_tpu_torch.config import compose, instantiate
-    from stain2stain_tpu_torch.ops.attention import fused_attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1049,14 +1049,14 @@ def phase_unet_parity(net) -> dict:
     net.eval()
     x = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (1, 256, 256, 3)).astype(np.float32))
     t = torch.tensor([0.37])
-    before = fused_attention.launches
+    before = ops.launches()["K1-fwd"]
     with torch.inference_mode():
         got = net(t.cuda(), x.cuda()).cpu()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ref = cpu_net(t, x)
         cpu_s = time.perf_counter() - t0
-    if fused_attention.launches != before + 1:
+    if ops.launches()["K1-fwd"] != before + 1:
         raise AssertionError("the card forward did not go through K1")
     err = (got - ref).abs().max().item()
     scale = max(1.0, ref.abs().max().item())
@@ -1239,6 +1239,7 @@ def phase_train(card: str, work: Path, name: str = "train", callbacks: Optional[
     Returns (summary, the objects ``train`` built)."""
     import torch
 
+    from stain2stain_tpu_torch import ops
     from stain2stain_tpu_torch.config import compose
     from stain2stain_tpu_torch.models.dit import Attention as DiTAttention
     from stain2stain_tpu_torch.models.unet import AttentionBlock
@@ -1261,12 +1262,12 @@ def phase_train(card: str, work: Path, name: str = "train", callbacks: Optional[
     cfg["callbacks"]["step_clock"] = {"_target_": f"{__name__}.step_clock"}  # as a script or imported
     torch.cuda.reset_peak_memory_stats()
     # ---- the main path: counts zeroed just before, read just after --------
-    zero_kernel_launches()
+    ops.zero_launches()
     t0 = time.perf_counter()
     metrics, objects = train(cfg)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = kernel_launches()
+    launches = ops.launches()
     # ---- end of the main path -----------------------------------------------
     fwd_launches, bwd_launches = launches["K1-fwd"], launches["K1-bwd"]
     k2, k3, k4, k5 = (launches[k] for k in ("K2", "K3", "K4", "K5"))
@@ -1411,8 +1412,8 @@ def phase_fused_grad_parity() -> dict:
     import numpy as np
     import torch
 
+    from stain2stain_tpu_torch import ops
     from stain2stain_tpu_torch.config import compose, instantiate
-    from stain2stain_tpu_torch.ops import conv
     from stain2stain_tpu_torch.tasks import ConditionalFlowMatchingModule
 
     cfg = compose(REPO / "configs", "train.yaml", [FUSED_OVERRIDE, "model.net.dropout=0.1"])
@@ -1431,14 +1432,14 @@ def phase_fused_grad_parity() -> dict:
         net.dtype = torch.bfloat16  # what bf16-mixed sets
         task = ConditionalFlowMatchingModule(net=net, device=dev)
         prepared = task.prepare_batch(batch, train=False)
-        before = [kernel.launches for kernel in conv.KERNELS]
+        before = [ops.launches()[k] for k in ("K2", "K3", "K4", "K5")]
         t0 = time.perf_counter()
         # a CPU generator on both sides: the same noise and the same dropout seeds
         loss, _ = task.loss_and_metrics(prepared, torch.Generator().manual_seed(7), train=True, t=t)
         loss.backward()
         if dev == "cuda":
             torch.cuda.synchronize()
-        launches = [kernel.launches - b for kernel, b in zip(conv.KERNELS, before)]
+        launches = [ops.launches()[k] - b for k, b in zip(("K2", "K3", "K4", "K5"), before)]
         out[dev] = (loss.item(), {n: p.grad.detach().float().cpu() for n, p in net.named_parameters()},
                     time.perf_counter() - t0, launches)
     (loss_gpu, g_gpu, gpu_s, launches), (loss_cpu, g_cpu, cpu_s, _) = out["cuda"], out["cpu"]
@@ -1474,8 +1475,8 @@ def phase_grad_parity() -> dict:
     import numpy as np
     import torch
 
+    from stain2stain_tpu_torch import ops
     from stain2stain_tpu_torch.config import compose, instantiate
-    from stain2stain_tpu_torch.ops.attention import fused_attention_backward
     from stain2stain_tpu_torch.tasks import ConditionalFlowMatchingModule
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1509,7 +1510,7 @@ def phase_grad_parity() -> dict:
     worst = max(g_cpu, key=lambda n: (g_gpu[n] - g_cpu[n]).abs().max().item())
     row = dict(loss_card=loss_gpu, loss_cpu=loss_cpu, max_abs_grad_err=err, worst_param=worst,
                ref_max_abs_grad=ref_max, tol=GRAD_REL_TOL * ref_max, card_step_s=gpu_s, cpu_step_s=cpu_s,
-               k1_bwd_launches=fused_attention_backward.launches)
+               k1_bwd_launches=ops.launches()["K1-bwd"])
     row["ok"] = (err <= row["tol"] and abs(loss_gpu - loss_cpu) <= 1e-4 * max(1.0, abs(loss_cpu))
                  and all(torch.isfinite(g).all() for g in g_gpu.values()))
     log("grad-parity " + json.dumps(row))
@@ -1537,8 +1538,8 @@ def phase_remat_modes(card: str) -> list:
     import numpy as np
     import torch
 
+    from stain2stain_tpu_torch import ops
     from stain2stain_tpu_torch.config import compose, instantiate
-    from stain2stain_tpu_torch.ops.attention import fused_attention, fused_attention_backward
     from stain2stain_tpu_torch.training import Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False  # torch's defaults for training
@@ -1558,8 +1559,7 @@ def phase_remat_modes(card: str) -> list:
         trainer._train_step(task, batch, augment)  # Adam state made, cuDNN algorithms chosen
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fused_attention.launches = 0
-        fused_attention_backward.launches = 0
+        ops.zero_launches()
         times = []
         for _ in range(REMAT_STEPS):
             t0 = time.perf_counter()
@@ -1567,7 +1567,7 @@ def phase_remat_modes(card: str) -> list:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        k1_fwd, k1_bwd = fused_attention.launches / REMAT_STEPS, fused_attention_backward.launches / REMAT_STEPS
+        k1_fwd, k1_bwd = ops.launches()["K1-fwd"] / REMAT_STEPS, ops.launches()["K1-bwd"] / REMAT_STEPS
         # what the forward leaves for the backward: device memory held after one
         # training forward (the loss kept), beyond what was held before it
         before = torch.cuda.memory_allocated()
@@ -1605,8 +1605,8 @@ def phase_remat_parity() -> dict:
     import numpy as np
     import torch
 
+    from stain2stain_tpu_torch import ops
     from stain2stain_tpu_torch.config import compose, instantiate
-    from stain2stain_tpu_torch.ops.attention import fused_attention
     from stain2stain_tpu_torch.tasks import ConditionalFlowMatchingModule
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1631,12 +1631,12 @@ def phase_remat_parity() -> dict:
             task = ConditionalFlowMatchingModule(net=net, device="cuda")
             prepared = task.prepare_batch(batch, train=False)
             seeds = torch.Generator().manual_seed(7)
-            before = fused_attention.launches
+            before = ops.launches()["K1-fwd"]
             loss, _ = task.loss_and_metrics(prepared, seeds, train=True, t=t)
             loss.backward()
             torch.cuda.synchronize()
             out[str(mode)] = (loss.item(), {n: p.grad.detach() for n, p in net.named_parameters()},
-                              seeds.get_state(), fused_attention.launches - before)
+                              seeds.get_state(), ops.launches()["K1-fwd"] - before)
             del net, task, prepared, loss
     finally:
         torch.backends.cudnn.deterministic = deterministic
@@ -1673,7 +1673,7 @@ def phase_serve_any2any(card: str, task) -> dict:
     import torch
     from PIL import Image
 
-    from stain2stain_tpu_torch.ops.attention import fused_attention
+    from stain2stain_tpu_torch import ops
     from stain2stain_tpu_torch.ops.solvers import SolverConfig
     from stain2stain_tpu_torch.server import TranslationServer, serve_forever
     from stain2stain_tpu_torch.tasks import ClassConditionalFlowMatchingModule
@@ -1690,7 +1690,7 @@ def phase_serve_any2any(card: str, task) -> dict:
     hook = net.register_forward_hook(lambda *_: evals.__setitem__(0, evals[0] + 1))
     task = ClassConditionalFlowMatchingModule(net=net, solver=SolverConfig("euler"), num_classes=net.num_classes)
     # ---- the main path: counts zeroed just before, read just after --------
-    fused_attention.launches = 0
+    ops.zero_launches()
     evals[0] = 0
     t0 = time.perf_counter()
     server = TranslationServer(task, num_steps=2, tile=256, overlap=32, batch=16)
@@ -1725,7 +1725,7 @@ def phase_serve_any2any(card: str, task) -> dict:
         thread.join(timeout=30)
     if thread.is_alive():
         raise RuntimeError("server thread did not stop")
-    launches, total_evals = fused_attention.launches, evals[0]
+    launches, total_evals = ops.launches()["K1-fwd"], evals[0]
     # ---- end of the main path ---------------------------------------------
     diffs = {f"{a}-{b}": float(np.abs(outs[a] - outs[b]).mean()) for a, b in ((0, 1), (0, 2), (1, 2))}
     if launches == 0 or launches != total_evals:
@@ -1737,9 +1737,9 @@ def phase_serve_any2any(card: str, task) -> dict:
     src = torch.from_numpy(
         np.stack([_test_image(256, 256, seed=300 + i) for i in range(16)]).astype(np.float32) / 127.5 - 1.0
     ).cuda()
-    before, evals_before = fused_attention.launches, evals[0]
+    before, evals_before = ops.launches()["K1-fwd"], evals[0]
     every = task.generate_all_classes(src, num_steps=2)
-    all_launches, all_evals = fused_attention.launches - before, evals[0] - evals_before
+    all_launches, all_evals = ops.launches()["K1-fwd"] - before, evals[0] - evals_before
     hook.remove()
     per_class = torch.stack([task.generate(src, num_steps=2, target_class=c) for c in range(3)])
     # warm now (cuDNN's algorithms chosen for both shapes): the 48-tile call against three 16-tile calls
@@ -1968,8 +1968,8 @@ def phase_mask_grad_parity() -> dict:
     import numpy as np
     import torch
 
+    from stain2stain_tpu_torch import ops
     from stain2stain_tpu_torch.config import compose, instantiate
-    from stain2stain_tpu_torch.ops.attention import fused_attention, fused_attention_backward
     from stain2stain_tpu_torch.tasks import MaskConditionedFlowMatchingModule
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1992,13 +1992,13 @@ def phase_mask_grad_parity() -> dict:
     for dev, net in nets.items():
         task = MaskConditionedFlowMatchingModule(net=net, device=dev)
         prepared = task.prepare_batch(batch, train=False)
-        before = (fused_attention.launches, fused_attention_backward.launches)
+        before = (ops.launches()["K1-fwd"], ops.launches()["K1-bwd"])
         t0 = time.perf_counter()
         loss, _ = task.loss_and_metrics(prepared, train=True, t=t)
         loss.backward()
         if dev == "cuda":
             torch.cuda.synchronize()
-        launches = (fused_attention.launches - before[0], fused_attention_backward.launches - before[1])
+        launches = (ops.launches()["K1-fwd"] - before[0], ops.launches()["K1-bwd"] - before[1])
         out[dev] = (loss.item(), {n: p.grad.detach().cpu() for n, p in net.named_parameters()},
                     time.perf_counter() - t0, launches)
     (loss_gpu, g_gpu, gpu_s, launches), (loss_cpu, g_cpu, cpu_s, _) = out["cuda"], out["cpu"]
@@ -2052,20 +2052,6 @@ def mask_phases(card: str, work: Path, timed=lambda label, fn, *args: fn(*args))
             "serve-mask-bound": serve_bound, "short": short, "mask-grad-parity": grad}
 
 
-def zero_kernel_launches() -> None:
-    """Every hand-written kernel's launch count to 0 (K1-fwd, K1-bwd, K2-K5)."""
-    from stain2stain_tpu_torch.ops import zero_launches
-
-    zero_launches()
-
-
-def kernel_launches() -> dict:
-    """{kernel: launches since the counts were zeroed}."""
-    from stain2stain_tpu_torch.ops import launches
-
-    return launches()
-
-
 def make_multiclass_data(work: Path) -> None:
     """``data-multiclass``: ``MULTICLASS_TILES`` 256-px tiles with 2-class
     masks (the port's generator, ``num_mask_classes=2``), under the columns
@@ -2086,6 +2072,7 @@ def _serve_one_request(task, img, **gen_kwargs) -> dict:
     import numpy as np
     from PIL import Image
 
+    from stain2stain_tpu_torch import ops
     from stain2stain_tpu_torch.server import TranslationServer, serve_forever
     from stain2stain_tpu_torch.wsi import tile_starts
 
@@ -2093,7 +2080,7 @@ def _serve_one_request(task, img, **gen_kwargs) -> dict:
     net = getattr(task.net, "encoder", task.net)
     hook = net.register_forward_hook(lambda *_: passes.__setitem__(0, passes[0] + 1))
     # ---- the main path: counts zeroed just before, read just after --------
-    zero_kernel_launches()
+    ops.zero_launches()
     t0 = time.perf_counter()
     server = TranslationServer(task, num_steps=2, tile=256, overlap=32, batch=16, **gen_kwargs)
     warm_s = time.perf_counter() - t0
@@ -2113,7 +2100,7 @@ def _serve_one_request(task, img, **gen_kwargs) -> dict:
         if server.httpd is not None:
             server.httpd.shutdown()
         thread.join(timeout=30)
-    launches = kernel_launches()
+    launches = ops.launches()
     # ---- end of the main path ---------------------------------------------
     hook.remove()
     if thread.is_alive():
@@ -2138,7 +2125,7 @@ def phase_infer_multitask(card: str, work: Path, name: str, summary: dict, task,
     import torch
     from PIL import Image
 
-    from stain2stain_tpu_torch import infer_multitask_multiclassloss
+    from stain2stain_tpu_torch import infer_multitask_multiclassloss, ops
     from stain2stain_tpu_torch.ops.solvers import SolverConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False  # torch's defaults for inference
@@ -2156,10 +2143,10 @@ def phase_infer_multitask(card: str, work: Path, name: str, summary: dict, task,
              "num_steps=2", "n_images=4", "model.solver.solver=euler"]
     out: dict = {"card": card}
     # ---- the main path: counts zeroed just before, read just after --------
-    zero_kernel_launches()
+    ops.zero_launches()
     t0 = time.perf_counter()
     panels, _ = _cli(infer_multitask_multiclassloss, argv, work)
-    launches = kernel_launches()
+    launches = ops.launches()
     # ---- end of the main path ---------------------------------------------
     rows = [np.asarray(Image.open(f)) for f in sorted(panels.iterdir())]
     pred = np.concatenate([r[:, 3 * px:4 * px].ravel() for r in rows]) if rows else np.zeros(0)
@@ -2192,10 +2179,12 @@ def _multitask_step(task, batch: tuple, t, dtype) -> tuple:
     launches) of ``task`` with its net and inputs in ``dtype``."""
     import torch
 
+    from stain2stain_tpu_torch import ops
+
     task.net.to(dtype)
     task.net.dtype = dtype
     prepared = tuple(x.to(dtype) if x.is_floating_point() else x for x in task.prepare_batch(batch, train=False))
-    zero_kernel_launches()
+    ops.zero_launches()
     t0 = time.perf_counter()
     loss, _ = task.loss_and_metrics(prepared, train=True, t=t.to(dtype))
     loss.backward()
@@ -2205,7 +2194,7 @@ def _multitask_step(task, batch: tuple, t, dtype) -> tuple:
     stats = {k: v.detach().double().cpu() for k, v in task.net.state_dict().items()
              if k.endswith(("running_mean", "running_var"))}
     grads = {n: p.grad.detach().double().cpu() for n, p in task.net.named_parameters()}
-    return loss.item(), grads, stats, seconds, kernel_launches()
+    return loss.item(), grads, stats, seconds, ops.launches()
 
 
 def _max_err(a: dict, b: dict) -> tuple[float, str]:
@@ -2344,6 +2333,7 @@ def resume_probe(expected: str):
     before the run logs a model of its own under the same reference)."""
     import torch
 
+    from stain2stain_tpu_torch import ops
     from stain2stain_tpu_torch.training import Callback
 
     class ResumeProbe(Callback):
@@ -2352,7 +2342,7 @@ def resume_probe(expected: str):
             self.fit_start = self.fit_end = self.weights_equal = None
 
         def on_fit_start(self, trainer, task):
-            self.fit_start = kernel_launches()
+            self.fit_start = ops.launches()
 
         def on_train_epoch_start(self, trainer, task):
             if self.weights_equal is None:
@@ -2362,7 +2352,7 @@ def resume_probe(expected: str):
                 self.expected = None
 
         def on_fit_end(self, trainer, task):
-            self.fit_end = kernel_launches()
+            self.fit_end = ops.launches()
 
     return ResumeProbe()
 
@@ -2502,6 +2492,7 @@ def phase_mnist_sweep(card: str, work: Path) -> dict:
     K1–K5 launch 0 times."""
     import torch
 
+    from stain2stain_tpu_torch import ops
     from stain2stain_tpu_torch import train as train_cli
     from stain2stain_tpu_torch.config import compose
 
@@ -2513,12 +2504,12 @@ def phase_mnist_sweep(card: str, work: Path) -> dict:
     log(f"mnist-sweep: {' '.join(argv)} ({n_trials} trials of {epochs} epochs; cut from the config's study: "
         f"{MNIST_SWEEP_CUT or 'none'})")
     # ---- the main path: counts zeroed just before, read just after --------
-    zero_kernel_launches()
+    ops.zero_launches()
     t0 = time.perf_counter()
     results = train_cli.main(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = kernel_launches()
+    launches = ops.launches()
     # ---- end of the main path ---------------------------------------------
     records = [json.loads(line) for line in journal.read_text().splitlines()]
     logs = sorted((work / "mnist-logs").rglob("metrics.csv"), key=lambda p: int(p.parent.name.split("_")[-1]))
@@ -2573,6 +2564,7 @@ def ddp_probe(out: str, grads: Optional[str] = None):
     ``<out>.rank<r>.json``."""
     import torch
 
+    from stain2stain_tpu_torch import ops
     from stain2stain_tpu_torch.training import Callback
 
     class DDPProbe(Callback):
@@ -2591,7 +2583,7 @@ def ddp_probe(out: str, grads: Optional[str] = None):
                 optimizer.register_step_pre_hook(keep)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            zero_kernel_launches()
+            ops.zero_launches()
 
         def on_train_epoch_start(self, trainer, task):
             torch.cuda.synchronize()
@@ -2608,7 +2600,7 @@ def ddp_probe(out: str, grads: Optional[str] = None):
                           backend=torch.distributed.get_backend() if torch.distributed.is_initialized() else None,
                           ddp=trainer._ddp is not None, optimizer=type(trainer.state.optimizer).__name__,
                           t0=self.t0, ends=self.ends, losses=self.losses, checksums=self.checksums,
-                          forwards=self.forwards[0], launches=kernel_launches(),
+                          forwards=self.forwards[0], launches=ops.launches(),
                           peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                           peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30,
                           val_loss=trainer.callback_metrics.get("val/loss"), global_step=trainer.global_step)
@@ -2919,6 +2911,7 @@ def phase_dropout_kernel(card: str) -> dict:
     kernel's device milliseconds a mask step (44 calls)."""
     import torch
 
+    from stain2stain_tpu_torch import ops
     from stain2stain_tpu_torch.ops.dropout import hash_dropout, hash_mask
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2930,7 +2923,7 @@ def phase_dropout_kernel(card: str) -> dict:
                ([2, 64, 96, 80], "non-contiguous (a transposed view)",
                 torch.randn(2, 64, 80, 96, device="cuda", generator=gen).transpose(2, 3))]
     cases, bad = [], []
-    before = hash_dropout.launches
+    before = ops.launches()["dropout"]
     calls, max_abs_err = 0, 0.0
     for shape, what, base in inputs:
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
@@ -2954,7 +2947,7 @@ def phase_dropout_kernel(card: str) -> dict:
                     del y, dx, mask
             del x, dy
         torch.cuda.empty_cache()
-    launches = hash_dropout.launches - before
+    launches = ops.launches()["dropout"] - before
     log("dropout-kernel-checks " + json.dumps({"cases": len(cases), "bad": bad, "launches": launches,
                                                 "calls": calls, "max_abs_err": max_abs_err}))
 
@@ -3020,6 +3013,7 @@ def ln_modulate_case(shape, x_dtype: str, param_dtype: str, y_dtype: str, peaked
     a (B, 6C) adaLN output); twice, bit for bit; one launch of each kernel a call."""
     import torch
 
+    from stain2stain_tpu_torch import ops
     from stain2stain_tpu_torch.ops import norms
 
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -3031,13 +3025,13 @@ def ln_modulate_case(shape, x_dtype: str, param_dtype: str, y_dtype: str, peaked
     x = x.to(dt[x_dtype])
     scale, shift = (torch.randn(b, 6 * c, device="cuda", generator=gen) * 0.5).to(dt[param_dtype]).chunk(6, dim=1)[:2]
     dy = torch.randn(shape, device="cuda", generator=gen).to(dt[y_dtype])
-    before = (norms.ln_modulate_fwd.launches, norms.ln_modulate_bwd.launches)
+    before = (ops.launches()["ln_modulate_fwd"], ops.launches()["ln_modulate_bwd"])
     runs = []
     for _ in range(2):
         leaves = [a.detach().requires_grad_() for a in (x, scale, shift)]
         y = norms.layer_norm_modulate(*leaves, dtype=dt[y_dtype])
         runs.append((y.detach(), *torch.autograd.grad(y, leaves, dy)))
-    launched = [norms.ln_modulate_fwd.launches - before[0], norms.ln_modulate_bwd.launches - before[1]]
+    launched = [ops.launches()["ln_modulate_fwd"] - before[0], ops.launches()["ln_modulate_bwd"] - before[1]]
     leaves = [a.detach().float().requires_grad_() for a in (x, scale, shift)]
     y = norms._LayerNormModulate.apply(*leaves, 1e-6, torch.float32)
     ref = (y.detach(), *torch.autograd.grad(y, leaves, dy.float()))
@@ -3072,6 +3066,7 @@ def phase_ln_modulate_kernel(card: str) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from stain2stain_tpu_torch import ops
     from stain2stain_tpu_torch.ops import norms
 
     cases = []
@@ -3080,7 +3075,7 @@ def phase_ln_modulate_kernel(card: str) -> dict:
         log("ln-modulate-case " + json.dumps(cases[-1]))
         torch.cuda.empty_cache()
     refused = []
-    before = (norms.ln_modulate_fwd.launches, norms.ln_modulate_bwd.launches)
+    before = (ops.launches()["ln_modulate_fwd"], ops.launches()["ln_modulate_bwd"])
     for what, (x, p) in (("C 20", (torch.zeros(2, 4, 20, device="cuda"), torch.zeros(2, 20, device="cuda"))),
                          ("float64", (torch.zeros(2, 4, 16, device="cuda", dtype=torch.float64),
                                       torch.zeros(2, 16, device="cuda", dtype=torch.float64)))):
@@ -3088,7 +3083,7 @@ def phase_ln_modulate_kernel(card: str) -> dict:
             norms.layer_norm_modulate(x, p, p)
         except ValueError as e:
             refused.append(f"{what}: {e}")
-    refused_ok = len(refused) == 2 and before == (norms.ln_modulate_fwd.launches, norms.ln_modulate_bwd.launches)
+    refused_ok = len(refused) == 2 and before == (ops.launches()["ln_modulate_fwd"], ops.launches()["ln_modulate_bwd"])
     log("ln-modulate-refused " + json.dumps(refused))
 
     bf16 = torch.bfloat16
@@ -3353,17 +3348,19 @@ def counted_calls(fn, repeats: int) -> tuple:
     (its output, its launches, the median ms of all)."""
     import torch
 
+    from stain2stain_tpu_torch import ops
+
     times, out, launches = [], None, None
     for i in range(1 + repeats):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         if i == 0:
-            zero_kernel_launches()
+            ops.zero_launches()
         start.record()
         result = fn()
         end.record()
         end.synchronize()
         if i == 0:
-            out, launches = result, kernel_launches()
+            out, launches = result, ops.launches()
         times.append(start.elapsed_time(end))
     return out, launches, statistics.median(times)
 
@@ -3508,7 +3505,7 @@ def phase_convert_ckpt(card: str, net, work: Path, sealed: dict) -> dict:
     (graph, weights, constants) the same bytes."""
     import torch
 
-    from stain2stain_tpu_torch import convert_ckpt, export_model
+    from stain2stain_tpu_torch import convert_ckpt, export_model, ops
     from stain2stain_tpu_torch.config import compose
     from stain2stain_tpu_torch.inference import load_task
 
@@ -3526,10 +3523,10 @@ def phase_convert_ckpt(card: str, net, work: Path, sealed: dict) -> dict:
                                                     "model.solver.solver=euler"])
     task = load_task(cfg)
     # the main path: counts zeroed just before, read just after
-    zero_kernel_launches()
+    ops.zero_launches()
     got = task.generate(sealed["src"], num_steps=2)
     torch.cuda.synchronize()
-    launches = kernel_launches()
+    launches = ops.launches()
     if not torch.equal(got, sealed["euler_direct"]) or launches["K1-fwd"] != 1:
         raise AssertionError(f"the converted checkpoint generates another batch (max abs "
                              f"{(got - sealed['euler_direct']).abs().max().item()}) or launched {launches}")
@@ -3632,12 +3629,13 @@ def control_worker(spec: dict) -> None:
     its result and the kernels' launches over it to ``spec["result"]``."""
     import torch
 
+    from stain2stain_tpu_torch import ops
     from stain2stain_tpu_torch.quality import control_run
 
     torch.set_num_threads(1)  # four workers and the tile writer share the host's cores
-    zero_kernel_launches()
+    ops.zero_launches()
     run = control_run(spec["seed"], spec["work"], device="cuda")
-    run["launches"] = kernel_launches()
+    run["launches"] = ops.launches()
     Path(spec["result"]).write_text(json.dumps(run))
 
 
@@ -3700,7 +3698,7 @@ def phase_quality_real(card: str, work: Path, tiles: Optional[subprocess.Popen] 
     import numpy as np
     import torch
 
-    from stain2stain_tpu_torch import eval_quality
+    from stain2stain_tpu_torch import eval_quality, ops
 
     t0 = time.perf_counter()
     if tiles is None:
@@ -3730,10 +3728,10 @@ def phase_quality_real(card: str, work: Path, tiles: Optional[subprocess.Popen] 
             "data.csv_file_name=metadata.csv", "data.direction=S2T", "data.image_size=256", "data.batch_size=16",
             "data.use_augmentation=false", "model=conditional_flow_matching", "model.solver.solver=euler",
             "num_steps=2", "n_batches=2"]
-    zero_kernel_launches()
+    ops.zero_launches()
     t1 = time.perf_counter()
     quality, printed = _cli(eval_quality, argv, work)
-    eval_launches = kernel_launches()
+    eval_launches = ops.launches()
     lines = [ln for ln in printed.splitlines() if ln.strip()]
     result = dict(card=card, tiles=n_png, tiles_s=tiles_s, cache_equal=cache_equal, datamodule=summary["datamodule"],
                   steps=summary["steps"], step_ms=summary["step_ms_median_3_8"], peak_gib=summary["peak_mem_gib"],

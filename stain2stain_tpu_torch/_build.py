@@ -1,12 +1,18 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them through ctypes.
+"""Build the port's CUDA kernels with ``nvcc``, load them through ctypes, and launch them.
 
-Each ``csrc/*.cu`` source compiles on first use into its own shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds). The
-libraries go to ``csrc/build/`` (listed in ``.gitignore``, or
+Each ``csrc/*.cu`` source (``SOURCES``: every one there, sorted) compiles
+on first use into its own shared library with a plain C interface (no
+PyTorch headers, so a build takes seconds). The libraries go to
+``csrc/build/`` (listed in ``.gitignore``, or
 ``$S2S_TORCH_BUILD_DIR``) under a name that carries a hash of the source, of
 every shared header ``csrc/*.cuh`` and of the flags, so an edited source or
 header rebuilds and an unchanged one is reused.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
+
+A hand-written kernel is one :class:`Kernel` declared beside its op wrapper:
+its name, source, C symbol and arguments. :meth:`Kernel.launch` is the one
+way it runs on the card, and each declaration counts its own launches
+(``ops.launches()`` reads them all).
 
 Nothing here runs at import time: the CPU tests import every module of the
 port, and ``nvcc`` is needed only when a kernel first launches.
@@ -22,9 +28,10 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "conv3x3_fwd.cu", "prologue_grad.cu", "conv3x3_wgrad.cu",
-           "dropout.cu", "layer_norm_modulate.cu")
+SOURCES = tuple(sorted(path.name for path in CSRC.glob("*.cu")))
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -106,4 +113,42 @@ def load(source: str) -> ctypes.CDLL:
         return _libs[source]
 
 
-__all__ = ["build_all", "build_dir", "load", "SOURCES"]
+KERNELS: dict[str, "Kernel"] = {}  # every declared kernel by name, in the order of declaration
+
+
+class Kernel:
+    """One hand-written kernel: the C function ``symbol`` of ``csrc/<source>``,
+    which takes arguments of the ctypes types ``c_args``, then the stream, and
+    returns a cudaError.
+
+    ``launches`` counts its launches. A second declaration of a name raises.
+    """
+
+    def __init__(self, name: str, source: str, symbol: str, c_args: list):
+        if name in KERNELS:
+            raise ValueError(f"a kernel named {name!r} is already declared")
+        self.name, self.source, self.symbol = name, source, symbol
+        self.c_args = [*c_args, ctypes.c_void_p]
+        self.launches = 0
+        self._fn = None
+        KERNELS[name] = self
+
+    def _resolve(self):
+        fn = getattr(load(self.source), self.symbol)
+        fn.argtypes = self.c_args
+        fn.restype = ctypes.c_int
+        self._fn = fn
+        return fn
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Launch on ``device``'s current stream (the library built and the
+        symbol bound at the first launch); raises if the launch fails."""
+        fn = self._fn or self._resolve()
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: cudaError {err}")
+        self.launches += 1
+
+
+__all__ = ["build_all", "build_dir", "Kernel", "KERNELS", "load", "SOURCES"]

@@ -1,25 +1,26 @@
 """Tensor ops of the port (counterparts of ``stain2stain_tpu/ops``)."""
 
+from .. import _build
 
-def _kernels() -> dict:
-    from .attention import fused_attention, fused_attention_backward
-    from .conv import KERNELS
-    from .dropout import hash_dropout
-    from .norms import ln_modulate_bwd, ln_modulate_fwd
 
-    return {"K1-fwd": fused_attention, "K1-bwd": fused_attention_backward,
-            **{f"K{i}": kernel for i, kernel in enumerate(KERNELS, start=2)}, "dropout": hash_dropout,
-            "ln_modulate_fwd": ln_modulate_fwd, "ln_modulate_bwd": ln_modulate_bwd}
+def _declared() -> dict:
+    """{name: kernel} of the hand-written kernels (``_build.KERNELS``), in the
+    order of the op modules below and, within one, of its declarations:
+    importing a module declares its kernels."""
+    from . import attention, conv, dropout, norms
+
+    return {k.name: k for module in (attention, conv, dropout, norms) for k in vars(module).values()
+            if isinstance(k, _build.Kernel)}
 
 
 def launches() -> dict:
     """{kernel: launches} of the hand-written kernels (K1-fwd, K1-bwd, K2-K5,
     the hash dropout's as ``"dropout"``, the DiT's LayerNorm-modulate pair as
     ``"ln_modulate_fwd"`` and ``"ln_modulate_bwd"``) since :func:`zero_launches`."""
-    return {name: kernel.launches for name, kernel in _kernels().items()}
+    return {name: kernel.launches for name, kernel in _declared().items()}
 
 
 def zero_launches() -> None:
     """Every hand-written kernel's launch count to 0."""
-    for kernel in _kernels().values():
+    for kernel in _declared().values():
         kernel.launches = 0

@@ -4,8 +4,10 @@ Counterpart of ``stain2stain_tpu/ops/pallas_attention.py``. The TPU kernels
 become CUDA C++ for ``sm_90a``, built by ``nvcc`` at first use and called
 through ctypes (see the source notes for their bounds and designs):
 
-- ``_fwd_kernel`` → ``csrc/attention_fwd.cu`` (:func:`fused_attention`);
-- ``_bwd_kernel`` → ``csrc/attention_bwd.cu`` (:func:`fused_attention_backward`).
+- ``_fwd_kernel`` → ``csrc/attention_fwd.cu`` (:func:`fused_attention`, the
+  kernel ``"K1-fwd"``);
+- ``_bwd_kernel`` → ``csrc/attention_bwd.cu`` (:func:`fused_attention_backward`,
+  ``"K1-bwd"``).
 
 :class:`FusedAttention` is the ``torch.autograd.Function`` in place of the
 JAX ``custom_vjp``: its forward is K1-fwd, which also returns each row's
@@ -21,9 +23,8 @@ kernel does not take; on CPU tensors it runs the kernel's plain version
 K1-fwd is the registered op ``s2s::attention_fwd`` (``torch.library.custom_op``
 with a fake implementation for the shapes), so ``torch.export`` traces a
 generator into a graph that holds it and a loaded program launches the kernel.
-``fused_attention.launches`` and ``fused_attention_backward.launches`` count
-the kernel launches (plain integers), so a run can show that it went through
-the kernels.
+``ops.launches()["K1-fwd"]`` and ``["K1-bwd"]`` count the kernel launches, so
+a run can show that it went through the kernels.
 """
 
 from __future__ import annotations
@@ -41,23 +42,10 @@ SUPPORTED_HEAD_DIMS = (16, 32, 64, 72)
 BF16_ONLY_HEAD_DIMS = (72,)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-
-def _kernel():
-    lib = _build.load("attention_fwd.cu")
-    fn = lib.s2s_attention_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _bwd_kernel():
-    lib = _build.load("attention_bwd.cu")
-    fn = lib.s2s_attention_bwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+_K1_FWD = _build.Kernel("K1-fwd", "attention_fwd.cu", "s2s_attention_fwd",
+                        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float])
+_K1_BWD = _build.Kernel("K1-bwd", "attention_bwd.cu", "s2s_attention_bwd",
+                        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float])
 
 
 def fused_attention_reference(q, k, v, scale: float, return_lse: bool = False):
@@ -144,16 +132,8 @@ def _attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
     bh, t, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, t) if return_lse else (0,), dtype=torch.float32, device=q.device)
-    fn = _kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr() if return_lse else None,
-            bh, t, d, _DTYPE_CODES[q.dtype], float(scale), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"attention_fwd kernel launch failed: cudaError {err}")
-    fused_attention.launches += 1
+    _K1_FWD.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   lse.data_ptr() if return_lse else None, bh, t, d, _DTYPE_CODES[q.dtype], float(scale))
     return out, lse
 
 
@@ -176,9 +156,6 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     return (out, lse) if return_lse else out
 
 
-fused_attention.launches = 0
-
-
 def fused_attention_backward(q, k, v, o, do, scale: float, lse=None):
     """(BH, T, d) q, k, v, o, do → (dq, dk, dv) in the inputs' dtype (K1-bwd).
 
@@ -194,22 +171,13 @@ def fused_attention_backward(q, k, v, o, do, scale: float, lse=None):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # (lse·log2 e, rowsum(do∘o)) per row, rows padded to a multiple of 64: the kernel's only scratch
     stats = torch.empty((bh, _tiles(t) * 64, 2), dtype=torch.float32, device=q.device)
-    fn = _bwd_kernel()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-            bh, t, d, _DTYPE_CODES[q.dtype], float(scale), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"attention_bwd kernel launch failed: cudaError {err}")
-    fused_attention_backward.launches += 1
+    _K1_BWD.launch(
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+        bh, t, d, _DTYPE_CODES[q.dtype], float(scale),
+    )
     return dq, dk, dv
-
-
-fused_attention_backward.launches = 0
 
 
 class FusedAttention(torch.autograd.Function):

@@ -28,7 +28,8 @@ units. Parity with the JAX kernels is exact only at rate 0.
 Each wrapper launches its kernel on CUDA tensors and raises on anything the
 kernel does not take; on CPU tensors it runs the kernel's plain version
 (``*_reference``, f32 products of bf16-rounded values, rounding where the
-kernels round). ``<wrapper>.launches`` counts the kernel launches. K2 is the
+kernels round). ``ops.launches()["K2"]`` … ``["K5"]`` count the kernel
+launches (K3 is K2's kernel, counted apart). K2 is the
 registered op ``s2s::conv3x3_fwd`` (``torch.library.custom_op`` with a fake
 implementation), so an exported bf16 ``fused_conv`` generator holds it; K3–K5
 run only in the backward and stay plain functions.
@@ -69,6 +70,12 @@ _K5_CHANNELS = 64  # input and output channels of a K5 block (one per SM)
 _P, _I, _U, _FL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # (scale, shift, silu, dropout, seed, keep_threshold, keep_scale): the prologue's arguments
 _PROLOGUE_ARGTYPES = [_P, _P, _I, _I, _U, _U, _FL]
+_CONV_ARGTYPES = [_P] * 4 + [_I] * 5 + _PROLOGUE_ARGTYPES
+
+_K2 = _build.Kernel("K2", "conv3x3_fwd.cu", "s2s_conv3x3_fwd", _CONV_ARGTYPES)
+_K3 = _build.Kernel("K3", "conv3x3_fwd.cu", "s2s_conv3x3_fwd", _CONV_ARGTYPES)
+_K4 = _build.Kernel("K4", "prologue_grad.cu", "s2s_prologue_grad", [_P] * 5 + [_I] * 4 + _PROLOGUE_ARGTYPES)
+_K5 = _build.Kernel("K5", "conv3x3_wgrad.cu", "s2s_conv3x3_wgrad", [_P] * 5 + [_I] * 6 + _PROLOGUE_ARGTYPES)
 
 
 def supported(x_shape, w_shape) -> bool:
@@ -238,14 +245,6 @@ def _seed(seed) -> int:
     return int(seed) & 0xFFFFFFFF
 
 
-def _fn(source: str, name: str, argtypes):
-    fn = getattr(_build.load(source), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _activation(x: torch.Tensor, name: str, channels: int) -> None:
     """Raise unless ``x`` is a contiguous, 16-byte aligned NHWC bf16 tensor."""
     if x.dim() != 4 or x.shape[-1] != channels:
@@ -290,14 +289,10 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _check_status(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
-
-
-def _launch_conv(x, wk, bias, scale, shift, act, dropout_rate, seed, name) -> torch.Tensor:
-    """y = conv3x3_SAME(prologue(x), ·) + bias through ``csrc/conv3x3_fwd.cu``;
-    ``wk`` is (3, 3, D, C): per tap, output channel rows of input channels."""
+def _launch_conv(x, wk, bias, scale, shift, act, dropout_rate, seed, name, kernel) -> torch.Tensor:
+    """y = conv3x3_SAME(prologue(x), ·) + bias through ``csrc/conv3x3_fwd.cu``
+    as ``kernel`` (K2 or K3); ``wk`` is (3, 3, D, C): per tap, output channel
+    rows of input channels."""
     b, h, w, c = x.shape
     d = wk.shape[2]
     _activation(x, name, c)
@@ -308,11 +303,7 @@ def _launch_conv(x, wk, bias, scale, shift, act, dropout_rate, seed, name) -> to
             else bias.detach().to(_F32).contiguous())
     pro, keep = _prologue_args(x, scale, shift, act, dropout_rate, seed, name)
     y = torch.empty((b, h, w, d), dtype=_BF16, device=x.device)
-    fn = _fn("conv3x3_fwd.cu", "s2s_conv3x3_fwd", [_P] * 4 + [_I] * 5 + _PROLOGUE_ARGTYPES + [_P])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), wk.data_ptr(), bias.data_ptr(), y.data_ptr(), b, h, w, c, d, *pro, stream)
-    _check_status(err, name)
+    kernel.launch(x.device, x.data_ptr(), wk.data_ptr(), bias.data_ptr(), y.data_ptr(), b, h, w, c, d, *pro)
     return y
 
 
@@ -323,9 +314,8 @@ def _conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     here, when the op runs), the plain version on CPU tensors."""
     if runs_plain("fused_conv3x3", x, w):
         return fused_conv3x3_reference(x, w, bias, scale, shift, act, dropout_rate, seed)
-    y = _launch_conv(x, w.permute(0, 1, 3, 2), bias, scale, shift, act, dropout_rate, seed, "fused_conv3x3")
-    fused_conv3x3.launches += 1
-    return y
+    return _launch_conv(x, w.permute(0, 1, 3, 2), bias, scale, shift, act, dropout_rate, seed, "fused_conv3x3",
+                        _K2)
 
 
 @_conv3x3_fwd.register_fake
@@ -348,9 +338,6 @@ def fused_conv3x3(x, w, bias=None, scale=None, shift=None, act=None,
     return _conv3x3_fwd(x, w, bias, scale, shift, act, float(dropout_rate), _seed(seed))
 
 
-fused_conv3x3.launches = 0
-
-
 def conv3x3_input_grad(dy, w) -> torch.Tensor:
     """K3: dn = conv3x3_SAME(dy, flip(w)ᵀ), the gradient w.r.t. the normalized
     input, bf16 (B, H, W, C) from dy (B, H, W, D) and w (3, 3, C, D): K2's
@@ -358,12 +345,8 @@ def conv3x3_input_grad(dy, w) -> torch.Tensor:
     if runs_plain("conv3x3_input_grad", dy, w):
         return conv3x3_input_grad_reference(dy, w)
     # kernel layout (3, 3, out=C, in=D) of flip(w)ᵀ is flip(w) itself
-    dn = _launch_conv(dy, torch.flip(w, dims=(0, 1)), None, None, None, None, 0.0, None, "conv3x3_input_grad")
-    conv3x3_input_grad.launches += 1
-    return dn
-
-
-conv3x3_input_grad.launches = 0
+    return _launch_conv(dy, torch.flip(w, dims=(0, 1)), None, None, None, None, 0.0, None, "conv3x3_input_grad",
+                        _K3)
 
 
 def prologue_grad(x, dn, scale=None, shift=None, act=None, dropout_rate: float = 0.0, seed=None):
@@ -387,17 +370,9 @@ def prologue_grad(x, dn, scale=None, shift=None, act=None, dropout_rate: float =
     dx = torch.empty_like(x)
     partial = torch.empty((2, b, slices, c), dtype=_F32, device=x.device)
     sums = torch.empty((2, b, c), dtype=_F32, device=x.device)
-    fn = _fn("prologue_grad.cu", "s2s_prologue_grad", [_P] * 5 + [_I] * 4 + _PROLOGUE_ARGTYPES + [_P])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), dn.data_ptr(), dx.data_ptr(), partial.data_ptr(), sums.data_ptr(),
-                 b, h * w, c, slice_px, *pro, stream)
-    _check_status(err, "prologue_grad")
-    prologue_grad.launches += 1
+    _K4.launch(x.device, x.data_ptr(), dn.data_ptr(), dx.data_ptr(), partial.data_ptr(), sums.data_ptr(),
+               b, h * w, c, slice_px, *pro)
     return dx, sums[0], sums[1]
-
-
-prologue_grad.launches = 0
 
 
 def prologue_grad_geometry(b: int, hw: int, c: int, sms: int):
@@ -459,20 +434,9 @@ def conv3x3_weight_grad(x, dy, scale=None, shift=None, act=None, dropout_rate: f
     partial = torch.empty(scratch, dtype=_F32, device=x.device)
     dw = torch.empty((3, 3, c, d), dtype=_F32, device=x.device)
     dbias = torch.empty((d,), dtype=_F32, device=x.device)
-    fn = _fn("conv3x3_wgrad.cu", "s2s_conv3x3_wgrad", [_P] * 5 + [_I] * 6 + _PROLOGUE_ARGTYPES + [_P])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(), dbias.data_ptr(),
-                 b, h, w, c, d, splits, *pro, stream)
-    _check_status(err, "conv3x3_weight_grad")
-    conv3x3_weight_grad.launches += 1
+    _K5.launch(x.device, x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(), dbias.data_ptr(),
+               b, h, w, c, d, splits, *pro)
     return dw, dbias
-
-
-conv3x3_weight_grad.launches = 0
-
-
-KERNELS = (fused_conv3x3, conv3x3_input_grad, prologue_grad, conv3x3_weight_grad)
 
 
 # ------------------------------------------------- composed GN→SiLU→conv op
@@ -530,7 +494,6 @@ __all__ = [
     "fused_conv3x3_reference",
     "gn_stats",
     "keep_mask",
-    "KERNELS",
     "norm_act_conv",
     "prologue_grad",
     "prologue_grad_geometry",

@@ -31,7 +31,7 @@ one hand-written kernel, ``csrc/dropout.cu``, which applies
 :func:`hash_mask`'s mask in one read and one write and launches on torch's
 current stream, with nothing built on the host; it takes float32, bfloat16
 and float16 and raises a ``TypeError`` on any other dtype.
-``hash_dropout.launches`` counts its launches. On a CPU tensor it is the
+``ops.launches()["dropout"]`` counts its launches. On a CPU tensor it is the
 plain ``x * hash_mask(...)``, the reference; :func:`hash_mask` and
 :func:`hash_bits` stay plain PyTorch, as the JAX package left them to XLA,
 which fused them without Pallas on the TPU.
@@ -47,6 +47,7 @@ import torch
 from torch import nn
 
 from .. import _build
+from .._device import runs_plain
 from ..parallel.mesh import generator_rows
 
 _M1 = 0x85EBCA6B
@@ -117,14 +118,17 @@ def bits_mask(seed: int, shape, rate: float, dtype, device=None) -> torch.Tensor
 
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # the kernel's dtype codes
+_KERNEL = _build.Kernel("dropout", "dropout.cu", "s2s_hash_dropout",
+                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float])
 
 
 def _hash_masked(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     """``x * hash_mask(seed, ...)``: the kernel on CUDA tensors, the plain
-    product on the CPU."""
-    if x.device.type == "cuda":
-        return _launch_hash_dropout(x, seed, rate)
-    return x * hash_mask(seed, x.shape, rate, x.dtype, x.device)
+    product on the CPU; raises for any other device."""
+    if runs_plain("hash_dropout", x):
+        return x * hash_mask(seed, x.shape, rate, x.dtype, x.device)
+    return _launch_hash_dropout(x, seed, rate)
 
 
 def _bits_masked(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
@@ -149,18 +153,8 @@ def _launch_hash_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tenso
     b, c, h, w = x.shape
     if y.numel() == 0:
         return y
-    fn = getattr(_build.load("dropout.cu"), "s2s_hash_dropout")
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), _KERNEL_DTYPES[x.dtype], b * c, h * w, c, seed,
-                 _keep_threshold(rate), _keep_scale(rate, x.dtype), stream)
-    if err != 0:
-        raise RuntimeError(f"hash_dropout kernel launch failed: cudaError {err}")
-    hash_dropout.launches += 1
+    _KERNEL.launch(x.device, x.data_ptr(), y.data_ptr(), _KERNEL_DTYPES[x.dtype], b * c, h * w, c, seed,
+                   _keep_threshold(rate), _keep_scale(rate, x.dtype))
     return y
 
 
@@ -186,9 +180,6 @@ def hash_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     if x.ndim != 4:
         raise ValueError(f"hash_dropout takes NCHW tensors, got shape {tuple(x.shape)}")
     return _SeededDropout.apply(x, _hash_masked, int(seed) & 0xFFFFFFFF, float(rate))
-
-
-hash_dropout.launches = 0
 
 
 def hardware_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:

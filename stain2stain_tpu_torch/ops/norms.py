@@ -14,8 +14,9 @@ package does not have:
 - :func:`layer_norm_modulate`   — LN without affine → x̂·(1+scale)+shift, scale
   and shift per sample (adaLN), the statistics in f32 from the centred form;
   on CUDA tensors two hand-written kernels (``csrc/layer_norm_modulate.cu``:
-  :func:`ln_modulate_fwd`, :func:`ln_modulate_bwd`), on CPU tensors the plain
-  chain
+  :func:`ln_modulate_fwd`, :func:`ln_modulate_bwd`; counted as
+  ``ops.launches()["ln_modulate_fwd"]`` and ``["ln_modulate_bwd"]``), on CPU
+  tensors the plain chain
 
 The math is the JAX package's: f32 statistics from the E[x²]−E[x]² form,
 variance clamped at 0, output in x's dtype. Layout is NCHW (channels second),
@@ -38,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .._device import runs_plain
 
 _F32 = torch.float32
 
@@ -242,15 +244,12 @@ def _param_rows(scale: torch.Tensor, shift: torch.Tensor):
     return scale, shift
 
 
-def _ln_kernel(name: str, argtypes: list):
-    fn = getattr(_build.load("layer_norm_modulate.cu"), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_FWD = _build.Kernel("ln_modulate_fwd", "layer_norm_modulate.cu", "s2s_ln_modulate_fwd",
+                     [_PTR, _PTR, _INT, _INT, _PTR, _PTR, _I64, _INT, _PTR, _PTR, _I64, _INT, _INT, ctypes.c_float])
+_BWD = _build.Kernel("ln_modulate_bwd", "layer_norm_modulate.cu", "s2s_ln_modulate_bwd",
+                     [_PTR, _PTR, _INT, _INT, _PTR, _I64, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+                      _INT])
 
 
 def ln_modulate_fwd(x, scale, shift, eps: float, dtype):
@@ -266,20 +265,10 @@ def ln_modulate_fwd(x, scale, shift, eps: float, dtype):
     rstd = torch.empty_like(mean)
     if y.numel() == 0:
         return y, mean, rstd
-    fn = _ln_kernel("s2s_ln_modulate_fwd", [_PTR, _PTR, _INT, _INT, _PTR, _PTR, _I64, _INT, _PTR, _PTR, _I64, _INT,
-                                            _INT, ctypes.c_float, _PTR])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), _LN_DTYPES[x.dtype], _LN_DTYPES[dtype], scale.data_ptr(),
-                 shift.data_ptr(), scale.stride(0), _LN_DTYPES[scale.dtype], mean.data_ptr(), rstd.data_ptr(), b * t,
-                 t, c, float(eps), stream)
-    if err != 0:
-        raise RuntimeError(f"ln_modulate_fwd kernel launch failed: cudaError {err}")
-    ln_modulate_fwd.launches += 1
+    _FWD.launch(x.device, x.data_ptr(), y.data_ptr(), _LN_DTYPES[x.dtype], _LN_DTYPES[dtype], scale.data_ptr(),
+                shift.data_ptr(), scale.stride(0), _LN_DTYPES[scale.dtype], mean.data_ptr(), rstd.data_ptr(), b * t,
+                t, c, float(eps))
     return y, mean, rstd
-
-
-ln_modulate_fwd.launches = 0
 
 
 def ln_modulate_bwd(x, dy, scale, mean, rstd, shift_dtype):
@@ -305,21 +294,11 @@ def ln_modulate_bwd(x, dy, scale, mean, rstd, shift_dtype):
         return dx, dscale.zero_(), dshift.zero_()
     blocks = -(-t // _LN_ROWS_PER_BLOCK)
     partial = torch.empty((b, blocks, 2, c), dtype=torch.float32, device=x.device)
-    fn = _ln_kernel("s2s_ln_modulate_bwd", [_PTR, _PTR, _INT, _INT, _PTR, _I64, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
-                                            _PTR, _INT, _INT, _INT, _INT, _PTR])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), dy.data_ptr(), _LN_DTYPES[x.dtype], _LN_DTYPES[dy.dtype], scale.data_ptr(),
-                 scale.stride(0), _LN_DTYPES[scale.dtype], mean.data_ptr(), rstd.data_ptr(),
-                 dx.data_ptr(), partial.data_ptr(), dscale.data_ptr(), dshift.data_ptr(), b, t, c,
-                 _LN_ROWS_PER_BLOCK, stream)
-    if err != 0:
-        raise RuntimeError(f"ln_modulate_bwd kernel launch failed: cudaError {err}")
-    ln_modulate_bwd.launches += 1
+    _BWD.launch(x.device, x.data_ptr(), dy.data_ptr(), _LN_DTYPES[x.dtype], _LN_DTYPES[dy.dtype], scale.data_ptr(),
+                scale.stride(0), _LN_DTYPES[scale.dtype], mean.data_ptr(), rstd.data_ptr(),
+                dx.data_ptr(), partial.data_ptr(), dscale.data_ptr(), dshift.data_ptr(), b, t, c,
+                _LN_ROWS_PER_BLOCK)
     return dx, dscale, dshift
-
-
-ln_modulate_bwd.launches = 0
 
 
 class _LayerNormModulateKernel(torch.autograd.Function):
@@ -344,11 +323,12 @@ def layer_norm_modulate(x, scale, shift, eps: float = 1e-6, dtype=None) -> torch
     """LayerNorm of (B, T, C) ``x`` over C without affine, then x̂·(1+scale)+shift
     with (B, C) ``scale`` and ``shift`` per sample; f32 statistics, the result
     in ``dtype`` (x's by default). The backward saves (x, scale, mean, rstd)
-    and recomputes x̂; its reductions run in f32. On a CUDA ``x`` both are the
+    and recomputes x̂; its reductions run in f32. On CUDA tensors both are the
     kernels of :func:`ln_modulate_fwd` and :func:`ln_modulate_bwd` (float32 or
     bfloat16, C a multiple of 8 up to ``LN_MAX_CHANNELS``; anything else raises
-    a ``ValueError``); elsewhere the plain chain."""
-    op = _LayerNormModulateKernel if x.device.type == "cuda" else _LayerNormModulate
+    a ``ValueError``); on CPU tensors the plain chain; on any other device, or
+    a mix, a ``ValueError``."""
+    op = _LayerNormModulate if runs_plain("layer_norm_modulate", x, scale, shift) else _LayerNormModulateKernel
     return op.apply(x, scale, shift, eps, dtype or x.dtype)
 
 

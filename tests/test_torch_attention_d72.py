@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from chip_smoke import BWD_REL_TOL, LSE_TOL, TOL
+from stain2stain_tpu_torch import ops
 from stain2stain_tpu_torch.models import DiT
 from stain2stain_tpu_torch.ops import attention as tattn
 
@@ -67,11 +68,11 @@ def test_k1_at_72_is_the_plain_attention(card, bh, t, q_scale):
     sums alone) to 1e-4, and dq, dk, dv to 1 % of their largest magnitude."""
     q, k, v, do = _inputs(bh, t, 72, torch.bfloat16, card, seed=bh + t, q_scale=q_scale)
     scale = 1.0 / math.sqrt(72)
-    before = (tattn.fused_attention.launches, tattn.fused_attention_backward.launches)
+    ops.zero_launches()
     o, lse, dq, dk, dv = run_k1(q, k, v, do)
     again = run_k1(q, k, v, do)
     torch.cuda.synchronize()
-    assert (tattn.fused_attention.launches - before[0], tattn.fused_attention_backward.launches - before[1]) == (2, 2)
+    assert (ops.launches()["K1-fwd"], ops.launches()["K1-bwd"]) == (2, 2)
     ref, ref_lse = tattn.fused_attention_reference(q, k, v, scale, return_lse=True)
     assert (o.float() - ref.float()).abs().max().item() <= TOL["bfloat16"]
     assert (lse - ref_lse).abs().max().item() <= LSE_TOL
@@ -86,10 +87,10 @@ def test_k1_at_72_is_the_plain_attention(card, bh, t, q_scale):
 @pytest.mark.chip
 def test_k1_refuses_f32_at_72(card):
     x = torch.zeros(4, 64, 72, device=card)
-    before = tattn.fused_attention.launches
+    ops.zero_launches()
     with pytest.raises(ValueError, match="bfloat16 only"):
         tattn.fused_attention(x, x, x, 1.0)
-    assert tattn.fused_attention.launches == before
+    assert ops.launches()["K1-fwd"] == 0
 
 
 @pytest.mark.chip
@@ -111,8 +112,8 @@ def test_a_bf16_dit_goes_through_k1(card):
             block.adaLN_modulation[1].weight.normal_(std=0.02)
         net.final_layer.linear.weight.normal_(std=0.02)
     x = torch.randn(4, 32, 32, 3, device=card)
-    before = (tattn.fused_attention.launches, tattn.fused_attention_backward.launches)
+    ops.zero_launches()
     net(torch.rand(4, device=card), x).square().mean().backward()
     torch.cuda.synchronize()
-    assert (tattn.fused_attention.launches - before[0], tattn.fused_attention_backward.launches - before[1]) == (2, 2)
+    assert (ops.launches()["K1-fwd"], ops.launches()["K1-bwd"]) == (2, 2)
     assert all(torch.isfinite(p.grad).all() for p in net.parameters())

@@ -17,7 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 from benchmark import inputs, work
 from benchmark.core import reference
 from benchmark.tests.tiny import ROOT
-from stain2stain_tpu_torch import _build, ops
+from stain2stain_tpu_torch import ops
 from stain2stain_tpu_torch.models import DiT
 from stain2stain_tpu_torch.ops import attention as tattn
 from stain2stain_tpu_torch.ops import norms
@@ -183,15 +183,7 @@ def test_ln_modulate_kernels_refuse_before_anything_builds(x_shape, x_dtype, p_d
     scale, shift = (torch.zeros(2, x_shape[-1], dtype=dt) for dt in p_dtypes)
     with pytest.raises(ValueError, match=match):
         norms.ln_modulate_fwd(x, scale, shift, 1e-6, x_dtype)
-    assert norms.ln_modulate_fwd.launches == 0
-
-
-def test_ln_modulate_launch_counts_are_listed_and_reset():
-    assert "layer_norm_modulate.cu" in _build.SOURCES
-    norms.ln_modulate_fwd.launches, norms.ln_modulate_bwd.launches = 57, 57
-    assert ops.launches()["ln_modulate_fwd"] == 57 and ops.launches()["ln_modulate_bwd"] == 57
-    ops.zero_launches()
-    assert norms.ln_modulate_fwd.launches == 0 and norms.ln_modulate_bwd.launches == 0
+    assert ops.launches()["ln_modulate_fwd"] == 0
 
 
 @pytest.mark.parametrize("dtype,d,ok", [(torch.bfloat16, 72, True), (torch.float32, 72, False),

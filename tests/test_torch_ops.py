@@ -30,6 +30,7 @@ from stain2stain_tpu.ops.image import denormalize_np as j_denormalize_np
 from stain2stain_tpu.ops.image import normalize_uint8_np as j_normalize_uint8_np
 from stain2stain_tpu.ops.pallas_attention import attention as j_attention
 from stain2stain_tpu.ops.time_embedding import timestep_embedding_adm as j_time_embedding
+from stain2stain_tpu_torch import ops
 from stain2stain_tpu_torch.ops import attention as tattn
 from stain2stain_tpu_torch.ops import cfm as tcfm
 from stain2stain_tpu_torch.ops import dropout as tdropout
@@ -103,9 +104,9 @@ def test_fused_attention_cpu_is_the_plain_version():
     def fold(x):
         return x.permute(0, 2, 1, 3).reshape(b * h, t, d).contiguous()
 
-    before = tattn.fused_attention.launches
+    before = ops.launches()["K1-fwd"]
     out = tattn.fused_attention(fold(q), fold(k), fold(v), 1.0 / math.sqrt(d))
-    assert tattn.fused_attention.launches == before
+    assert ops.launches()["K1-fwd"] == before
     ref = tattn.attention_reference(q, k, v, d)
     np.testing.assert_allclose(out.reshape(b, h, t, d).permute(0, 2, 1, 3).numpy(), ref.numpy(), atol=TOL, rtol=TOL)
     bf = tattn.fused_attention(fold(q).bfloat16(), fold(k).bfloat16(), fold(v).bfloat16(), 0.25)
@@ -234,9 +235,9 @@ def test_fused_attention_backward_reference_is_the_vjp_of_the_plain_forward():
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     out = tattn.fused_attention_reference(*leaves, 0.3)
     auto = torch.autograd.grad(out, leaves, do)
-    before = tattn.fused_attention_backward.launches
+    before = ops.launches()["K1-bwd"]
     got = tattn.fused_attention_backward(q, k, v, out.detach(), do, 0.3)
-    assert tattn.fused_attention_backward.launches == before
+    assert ops.launches()["K1-bwd"] == before
     for a, b in zip(got, auto):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=TOL, rtol=TOL)
     bf = tattn.fused_attention_backward(*(x.bfloat16() for x in (q, k, v, out.detach(), do)), 0.3)
@@ -396,8 +397,6 @@ def test_hash_dropout_forward_and_gradient_match_jax():
 def test_hash_dropout_keeps_the_plain_path_on_cpu_tensors(dtype):
     """CPU tensors, of any float dtype, take the plain ``x * hash_mask(...)``
     both ways and never count a launch of the card's kernel."""
-    from stain2stain_tpu_torch import ops
-
     ops.zero_launches()
     x = torch.randn(2, 6, 5, 7).to(dtype).requires_grad_()
     dy = torch.randn(x.shape).to(dtype)
@@ -412,17 +411,6 @@ def test_hash_dropout_kernel_refuses_dtypes_it_does_not_take():
     """The card's path checks the dtype before it builds or launches anything."""
     with pytest.raises(TypeError, match="float64"):
         tdropout._launch_hash_dropout(torch.ones(2, 6, 5, 7, dtype=torch.float64), 12345, 0.1)
-
-
-def test_dropout_launch_count_is_listed_and_reset():
-    from stain2stain_tpu_torch import _build, ops
-
-    assert "dropout.cu" in _build.SOURCES
-    assert "dropout" in ops.launches()
-    tdropout.hash_dropout.launches = 3
-    assert ops.launches()["dropout"] == 3
-    ops.zero_launches()
-    assert ops.launches()["dropout"] == 0 and tdropout.hash_dropout.launches == 0
 
 
 def test_fast_dropout_modes():
