@@ -19,8 +19,9 @@ Phases (any failure ends the script with a non-zero exit and no result line):
    at 512 px, with the lse that training saves), ``generate_all_classes``'
    shape (BH 768, f32), the 512-px mask paths' shape (128, 4096, 32, f32,
    with the lse), a rank's 512-px shape of phase 28 (48, 4096, 32, f32, with
-   the lse), d 16 and d 64 (both dtypes), d 72 (bf16 alone: DiT-XL/2's
-   training shape (512, 1024, 72), a ragged T and peaked logits), T 4096,
+   the lse), d 16 and d 64 (both dtypes), d 72 (bf16 alone, on its wgmma
+   and TMA route: DiT-XL/2's training shape (512, 1024, 72), a ragged T and
+   peaked logits), T 4096,
    ragged T, peaked logits (q × 8); times of the kernel
    (per call, ``ms``, and queued device time, ``queued_ms``, see
    :func:`cuda_queued_ms`), the plain version and
@@ -424,7 +425,8 @@ def attention_bound(bh: int, t: int, d: int, dtype: str, exp_per_s: float, lse: 
 
 
 # the kernels ptxas must compile without spills: the bf16 attention kernels of
-# K1-fwd and K1-bwd, the register-tiled f32 K1-fwd, the 3xTF32 passes of the
+# K1-fwd and K1-bwd ("mma_kernel" also names the wgmma kernels of head dim
+# 72), the register-tiled f32 K1-fwd, the 3xTF32 passes of the
 # f32 K1-bwd, the wgmma kernels of K2/K3 and K5, K4, the hash dropout, and the
 # LayerNorm-modulate backward and its forward on f32 x (the DiT's residual
 # stream; on bf16 x at 4 and 5 vectors a lane ptxas keeps one 4-byte value on
@@ -438,6 +440,31 @@ SPILL_CHECKED = {
     "dropout.cu": ("hash_dropout_kernel",),
     "layer_norm_modulate.cu": ("ln_modulate_fwd_kernelIf", "ln_modulate_bwd_kernel"),
 }
+
+
+# K1's head-dim-72 kernels hand registers from their producer warpgroup to
+# their consumers (setmaxnreg, csrc/attention_d72.cuh), which assumes the
+# block starts with 168 registers a thread: with fewer the consumers would wait
+# for registers forever
+D72_KERNELS = ("attention_fwd_wgmma_kernel", "attention_bwd_dkdv_wgmma_kernel", "attention_bwd_dq_wgmma_kernel")
+D72_LAUNCH_REGISTERS = 168
+
+
+def d72_registers(build_logs: dict) -> dict:
+    """ptxas' register count of each of K1's head-dim-72 kernels, by name."""
+    import re
+
+    found = {}
+    for src in ("attention_fwd.cu", "attention_bwd.cu"):
+        name = None
+        for line in build_logs.get(src, "").splitlines():
+            entry = re.search(r"entry function '(\S+)'", line)
+            if entry:
+                name = next((k for k in D72_KERNELS if k in entry.group(1)), None)
+            used = re.search(r"Used (\d+) registers", line)
+            if used and name:
+                found[name] = int(used.group(1))
+    return found
 
 
 def checked_spills(build_logs: dict) -> dict:
@@ -460,6 +487,13 @@ def checked_spills(build_logs: dict) -> dict:
                 continue  # K1-bwd's f32 prep pass: SIMT, not checked
             spills[f"{src}:{name}"] = int(found.group(1))
     return spills
+
+
+def k1_route(d: int, dtype: str, backward: bool = False) -> str:
+    """Which of K1's designs runs a call."""
+    if dtype == "bfloat16":
+        return "wgmma + TMA (attention_d72.cuh)" if d == 72 else "mma.sync + cp.async"
+    return "3xTF32 mma.sync" if backward else "FP32 FMA, register-tiled"
 
 
 def phase_kernels(exp_per_s: float) -> dict:
@@ -527,8 +561,8 @@ def phase_kernels(exp_per_s: float) -> dict:
         library_ms = cuda_ms(
             lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], scale=scale), repeats=20
         )
-        row = dict(bh=bh, t=t, d=d, shape=[bh, t, d], dtype=dtype, q_scale=peak, lse=with_lse, what=what,
-                   max_abs_err=err, tol=TOL[dtype], lse_max_abs_err=lse_err, lse_tol=LSE_TOL,
+        row = dict(bh=bh, t=t, d=d, shape=[bh, t, d], dtype=dtype, route=k1_route(d, dtype), q_scale=peak,
+                   lse=with_lse, what=what, max_abs_err=err, tol=TOL[dtype], lse_max_abs_err=lse_err, lse_tol=LSE_TOL,
                    ok=ok, ms=ms, queued_ms=queued_ms, plain_ms=plain_ms, library_ms=library_ms,
                    **attention_bound(bh, t, d, dtype, exp_per_s, with_lse))
         log("K1 " + json.dumps(row))
@@ -636,7 +670,8 @@ def phase_k1_bwd(exp_per_s: float) -> dict:
         library_ms = cuda_ms(
             lambda: torch.autograd.grad(out4, (q4, k4, v4), do[None], retain_graph=True), repeats=10
         )
-        row = dict(bh=bh, t=t, d=d, shape=[bh, t, d], dtype=dtype, q_scale=peak, what=what, max_abs_err=err,
+        row = dict(bh=bh, t=t, d=d, shape=[bh, t, d], dtype=dtype, route=k1_route(d, dtype, backward=True),
+                   q_scale=peak, what=what, max_abs_err=err,
                    max_abs_err_recomputed_lse=err_recomputed, autograd_vs_plain=auto_err, deterministic=deterministic,
                    ref_max_abs=ref_max, tol=tol, ok=ok, ms=ms, queued_ms=queued_ms, ms_recomputed_lse=ms_recomputed,
                    plain_ms=plain_ms,
@@ -3813,6 +3848,10 @@ def main() -> int:
         missing.append("the six 3xTF32 kernels of attention_bwd.cu")
     if missing or any(spills.values()):
         raise AssertionError(f"ptxas spilled in a checked kernel, or reported none for {missing}: {spills}")
+    registers = d72_registers(build_logs)
+    log("ptxas-d72-registers " + json.dumps(registers))
+    if registers != {k: D72_LAUNCH_REGISTERS for k in D72_KERNELS}:
+        raise AssertionError(f"K1's d 72 kernels must start at {D72_LAUNCH_REGISTERS} registers: {registers}")
 
     seconds: dict = {}
 

@@ -35,9 +35,9 @@
 //   2. dk/dv: one block per (bh, 64 keys).
 //   3. dq: one block per (bh, 64 queries).
 //
-// bf16 (attention_common.cuh; mma.sync.m16n8k16 bf16 -> f32 throughout, 4
-// warps of 16 rows, 64-row tiles of the other operand streaming through
-// padded shared memory by cp.async, double buffered):
+// bf16 at D 16, 32, 64 (attention_common.cuh; mma.sync.m16n8k16 bf16 -> f32
+// throughout, 4 warps of 16 rows, 64-row tiles of the other operand streaming
+// through padded shared memory by cp.async, double buffered):
 //   2. each warp holds 16 keys' k and v fragments in registers and walks the
 //      query tiles (q, do and their (lse, delta) rows staged):
 //        s^T = k.q^T, p^T = exp2(s^T c - lse2), dv += p^T.do,
@@ -49,6 +49,13 @@
 //   products against the bound's five (s and dp are computed in both passes):
 //   14*BH*T^2*D, about 0.24 ms at the training shape, the price of no atomics
 //   (SDPA's FlashAttention-2 backward adds dq with f32 atomics).
+// bf16 at D 72 (the DiT's heads): the prep pass above, then passes 2 and 3 on
+//   wgmma fed by TMA (attention_d72.cuh: persistent blocks of a producer
+//   warpgroup and two consumer warpgroups of 64 keys or queries, 64-row q/do
+//   or k/v tiles streaming through a three-stage mbarrier ring, the same seven
+//   products and passes, no atomics). The mma.sync passes ran at about 220
+//   TFLOP/s there (2.429 ms at (512, 1024, 72), slower than SDPA's backward);
+//   D 16, 32 and 64 keep them, for the reasons K1-fwd gives.
 // f32 (the f32 training path's kernel: trainer.precision 32, the default):
 // the same two passes and products on the tensor cores in 3xTF32, mma.sync
 // m16n8k8 tf32 -> f32 (mma_common.cuh). Every f32 operand x is split into
@@ -98,6 +105,7 @@
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "attention_d72.cuh"
 
 namespace {
 
@@ -866,14 +874,22 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
                           static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), stats, bh,
                           t_len, t_pad, scale, stream);
   }
-  if constexpr (D % 16 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);  // no f32 passes at this head dim
-  } else {
-    return launch_f32<D>(static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-                         static_cast<const float*>(o), static_cast<const float*>(dout), lse,
-                         static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), stats, bh, t_len,
-                         t_pad, scale, stream);
-  }
+  return launch_f32<D>(static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+                       static_cast<const float*>(o), static_cast<const float*>(dout), lse,
+                       static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), stats, bh, t_len,
+                       t_pad, scale, stream);
+}
+
+// bf16 at head dim 72: the prep pass, then the dk/dv and dq passes of attention_d72.cuh.
+int launch_d72(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout, const float* lse,
+               void* dq, void* dk, void* dv, float2* stats, int bh, int t_len, int t_pad, float scale,
+               cudaStream_t stream) {
+  const int n_tiles = t_pad / kTile;
+  attention_bwd_prep_kernel<bf16, 72><<<static_cast<unsigned>(bh) * n_tiles, kThreads, 0, stream>>>(
+      q, k, o, dout, lse, stats, t_len, t_pad, n_tiles, scale * kLog2e);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(s2s_attn_d72::launch_bwd(q, k, v, dout, stats, dq, dk, dv, bh, t_len, t_pad, scale, stream));
 }
 
 }  // namespace
@@ -899,8 +915,11 @@ extern "C" int s2s_attention_bwd(const void* q, const void* k, const void* v, co
       return launch<32>(q, k, v, o, dout, lp, dq, dk, dv, sp, bh, t_len, t_pad, bf, scale, s);
     case 64:
       return launch<64>(q, k, v, o, dout, lp, dq, dk, dv, sp, bh, t_len, t_pad, bf, scale, s);
-    case 72:
-      return launch<72>(q, k, v, o, dout, lp, dq, dk, dv, sp, bh, t_len, t_pad, bf, scale, s);
+    case 72:  // bf16 alone, on its own route
+      if (!bf) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_d72(static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lp, dq, dk, dv, sp, bh, t_len,
+                        t_pad, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

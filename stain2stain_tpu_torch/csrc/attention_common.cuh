@@ -15,14 +15,15 @@
 // distinct 16-byte bank groups. They arrive by cp.async; rows past T are
 // zero-filled.
 //
-// A head dim that is a multiple of 8 but not of 16 (72 = 4*16 + 8, DiT-XL/2's)
+// K1's kernels at head dim 72 (DiT-XL/2's) are attention_d72.cuh's. Here d 72
+// serves one path alone: K1-bwd's prep pass recomputing the lse when the
+// caller gives none (softmax_rows without p.v; no training path does). It
 // takes one more k-step over d, whose upper 8 columns are zero: in the A
 // fragments (registers, never loaded) and in the staged tiles (columns D..D+7
 // of every row, which no copy writes, zeroed once when a kernel starts:
 // zero_pad). Its rows are padded to D + 16 (176 bytes: an odd count of 16-byte
-// groups, so ldmatrix stays free of bank conflicts). The products with d as the
-// n dimension take D / 8 n-tiles exactly, the last one alone (ldmatrix .x2).
-// The instances at D 16, 32 and 64 compile to the SASS they had before d 72.
+// groups, so ldmatrix stays free of bank conflicts). The instances at D 16, 32
+// and 64 compile to the SASS they had before d 72.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4): an accumulator
 // tile holds (row g, columns 2t, 2t+1) in elements 0, 1 and (row g + 8, the
@@ -135,6 +136,7 @@ __device__ __forceinline__ void warp_abt(float (&s)[8][4], const uint32_t (&a)[k
 // 64 rows x D read transposed, so the product runs over B's rows.
 template <int D>
 __device__ __forceinline__ void warp_pb(float (&acc)[D / 8][4], const float (&p)[8][4], const bf16* b, int lane) {
+  static_assert(D % 16 == 0, "two n-tiles per ldmatrix");
   const int lr = lane & 7;
   const int lj = lane >> 3;
 #pragma unroll
@@ -149,12 +151,6 @@ __device__ __forceinline__ void warp_pb(float (&acc)[D / 8][4], const float (&p)
       ldsm_x4_trans(f, b + (kk * 16 + lr + ((lj & 1) << 3)) * kRowElems<D> + dp * 16 + ((lj >> 1) << 3));
       mma_bf16(acc[2 * dp], a, f[0], f[1]);
       mma_bf16(acc[2 * dp + 1], a, f[2], f[3]);
-    }
-    if constexpr (D % 16 != 0) {
-      // the last 8 columns alone: matrices {k 0-7, k 8-15} (lanes 0-15 give the rows)
-      uint32_t f[2];
-      ldsm_x2_trans(f, b + (kk * 16 + lr + ((lj & 1) << 3)) * kRowElems<D> + (D / 16) * 16);
-      mma_bf16(acc[D / 8 - 1], a, f[0], f[1]);
     }
   }
 }

@@ -32,6 +32,16 @@
 // the A operand of p.v, v read by ldmatrix.trans. Keys past T score -inf; rows
 // past T compute but do not store.
 //
+// bf16 at D 72 (the DiT's heads, 28 calls a training step) takes a route of its
+// own, attention_d72.cuh: wgmma fed by TMA through a three-stage mbarrier ring,
+// a producer warpgroup and two consumer warpgroups of 64 query rows, d in a
+// 64-column and an 8-column panel (the source note there has the design).
+// mma.sync cannot reach the tensor cores' full rate on this card, and at D 72
+// the mma.sync kernel ran at 22 % of its bound (0.706 ms at (512, 1024, 72),
+// slower than SDPA). D 16, 32 and 64 stay on mma.sync: the flagship's K1 at
+// D 32 is about 0.1 % of its training step, so no cell could show a gain from
+// moving it, and its results are pinned bit for bit.
+//
 // f32 design (the serving path's kernel; FlashAttention-2's shape on the FP32
 // pipes: f32 serving keeps f32 products, its tolerance is 5e-5, so no TF32).
 // Its bound is the FP32 FMA rate, 0.513 ms at the serving shape. What keeps a
@@ -71,6 +81,7 @@
 #include <stdint.h>
 
 #include "attention_common.cuh"
+#include "attention_d72.cuh"
 
 namespace {
 
@@ -379,8 +390,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
     attention_fwd_mma_kernel<D><<<static_cast<unsigned>(bh) * n_qtiles, kThreads, 0, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<bf16*>(o), lse, t_len, n_qtiles, c);
-  } else if constexpr (D % 16 != 0) {
-    return cudaErrorInvalidValue;  // no f32 kernel at this head dim
   } else {
     constexpr int bytes = F32Layout<D>::kBytes;
     const cudaError_t err =
@@ -412,8 +421,9 @@ extern "C" int s2s_attention_fwd(const void* q, const void* k, const void* v, vo
       return static_cast<int>(launch<32>(q, k, v, o, lp, bh, t_len, dtype == 1, scale, s));
     case 64:
       return static_cast<int>(launch<64>(q, k, v, o, lp, bh, t_len, dtype == 1, scale, s));
-    case 72:
-      return static_cast<int>(launch<72>(q, k, v, o, lp, bh, t_len, dtype == 1, scale, s));
+    case 72:  // bf16 alone, on its own route (attention_d72.cuh)
+      if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(s2s_attn_d72::launch_fwd(q, k, v, o, lp, bh, t_len, scale, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -28,12 +28,6 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* smem
                : "r"(a));
 }
 
-// Two 8x8 b16 matrices, transposed; lanes 0-15 give the row addresses.
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* smem) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n" : "=r"(r[0]), "=r"(r[1]) : "r"(a));
-}
-
 // d += a * b on the tensor cores: a 16x16 (row), b 16x8 (col), bf16 in, f32 out.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   asm volatile(

@@ -1,6 +1,8 @@
 """K1 at head dim 72 (DiT-XL/2's heads; bfloat16 alone) on the card, against
-the plain versions, and K1 at head dims 32 and 64 against digests of what the
-kernels gave before d 72 came in. Marked ``chip``: it skips without a card.
+the plain versions, bit for bit from run to run, and on its own route (the
+wgmma kernels of ``csrc/attention_d72.cuh``; d 64 stays on the mma.sync
+kernels); and K1 at head dims 32 and 64 against digests of what the kernels
+gave before d 72 came in. Marked ``chip``: it skips without a card.
 The file imports neither JAX nor the JAX package, so it runs on the card:
 ``python -m pytest --noconftest tests/test_torch_attention_d72.py -m chip -q``."""
 
@@ -12,6 +14,8 @@ import math
 import numpy as np
 import pytest
 import torch
+
+from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import BWD_REL_TOL, LSE_TOL, TOL
 from stain2stain_tpu_torch import ops
@@ -57,11 +61,13 @@ def run_k1(q, k, v, do):
 
 
 @pytest.mark.chip
-@pytest.mark.parametrize("bh,t,q_scale", [(512, 1024, 1.0), (48, 1000, 1.0), (64, 1024, 8.0)],
-                         ids=["dit-512px", "ragged", "peaked"])
+@pytest.mark.parametrize("bh,t,q_scale", [(512, 1024, 1.0), (48, 1000, 1.0), (64, 1024, 8.0), (1, 300, 1.0)],
+                         ids=["dit-512px", "ragged", "peaked", "one-slice-ragged-tiles"])
 def test_k1_at_72_is_the_plain_attention(card, bh, t, q_scale):
     """Forward, lse and backward at DiT-XL/2's training shape (batch 32 × 16
-    heads, T 1024), a ragged T and peaked logits. Tolerances are chip_smoke's:
+    heads, T 1024), a ragged T, peaked logits, and one slice whose T (300) is
+    a multiple of neither the route's 128-row blocks nor its 64-row streamed
+    tiles (its last block's second box lies wholly past T). Tolerances are chip_smoke's:
     the outputs are rounded to bf16 (an ulp is 2^-8 of a value under 1), p is
     rounded to bf16 as an operand of p·v and ds of the gradient products, so
     the forward is held to 8e-3 absolute, the lse (f32, the logits' order of
@@ -82,6 +88,37 @@ def test_k1_at_72_is_the_plain_attention(card, bh, t, q_scale):
         assert torch.isfinite(got).all()
         assert (got.float() - want.float()).abs().max().item() <= BWD_REL_TOL["bfloat16"] * ref_max
     assert all(torch.equal(a, b) for a, b in zip((o, lse, dq, dk, dv), again))  # deterministic, no atomics
+
+
+@pytest.mark.chip
+def test_k1_at_72_repeats_bit_for_bit(card):
+    """Two forward + backward calls at the DiT's training shape give one digest:
+    every gradient is summed in a fixed order and written once, no atomics."""
+    inputs = _inputs(512, 1024, 72, torch.bfloat16, card, seed=3)
+    assert digest(run_k1(*inputs)) == digest(run_k1(*inputs))
+
+
+def _attention_kernels(d: int, card) -> list[str]:
+    """The names of the attention kernels a bf16 forward + backward at head dim d launches."""
+    q, k, v, do = _inputs(8, 256, d, torch.bfloat16, card, seed=d)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_k1(q, k, v, do)
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() if "attention_" in e.key]
+
+
+@pytest.mark.chip
+def test_k1_takes_the_wgmma_route_at_72_alone(card):
+    """d 72 launches the route's three kernels (forward, dk/dv, dq) and no
+    mma.sync kernel at 72; d 64 still launches the mma.sync kernels and none
+    of the route's."""
+    at72, at64 = _attention_kernels(72, card), _attention_kernels(64, card)
+    for name in ("attention_fwd_wgmma_kernel", "attention_bwd_dkdv_wgmma_kernel", "attention_bwd_dq_wgmma_kernel"):
+        assert any(name in k for k in at72), at72
+    assert not any("_mma_kernel<72>" in k for k in at72), at72
+    for name in ("attention_fwd_mma_kernel<64>", "attention_bwd_dkdv_mma_kernel<64>", "attention_bwd_dq_mma_kernel<64>"):
+        assert any(name in k for k in at64), at64
+    assert not any("wgmma" in k for k in at64), at64
 
 
 @pytest.mark.chip
